@@ -7,7 +7,9 @@ Phases, each printed as one JSON line with elapsed seconds:
   device   — card name, and name + power limit from nvidia-smi;
   build    — nvcc build of dojo_tpu_torch/csrc/ldu.cu (first use);
   kernels  — the three block-LDU kernels against their plain PyTorch
-             versions on the quadruped KKT at B=256, float32, with times;
+             versions on the quadruped KKT at B=256, float32 (factorize
+             also on L·U = PS·D), with times at B=256 and for one lane,
+             and the dynamic shared memory each kernel was launched with;
   steps    — the quadruped contact step (h=0.05, B=256, float32,
              rtol=1e-6, btol=1e-4, max_iter=30): one validation step, then
              a cold and a warm chain of K steps, with success, Newton
@@ -102,6 +104,18 @@ def work(sched, lanes, elem):
     }
 
 
+def lu_identity_err(fb, lu, ps, n_nodes):
+    """max over lanes and nodes of |L·U − PS·D| / max|PS·D| (D = the
+    node's diagonal block as factored, fb slot n)."""
+    import torch
+
+    W = lu.shape[-1]
+    lower = torch.tril(lu, -1) + torch.eye(W, dtype=lu.dtype, device=lu.device)
+    pd = ps @ fb[:, :n_nodes]
+    num = (lower @ torch.triu(lu) - pd).abs().amax(dim=(-1, -2))
+    return (num / pd.abs().amax(dim=(-1, -2))).max().item()
+
+
 def bound(nbytes, flops):
     t_b, t_f = nbytes / H100["bytes_per_s"], flops / H100["f32_flops"]
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
@@ -132,7 +146,8 @@ def main():
     path, report = L.build()
     L.library()
     emit("build", seconds=round(time.perf_counter() - t, 3), library=os.path.basename(path),
-         ptxas=[ln.strip() for ln in report.splitlines() if "registers" in ln or "Compiling" in ln])
+         ptxas=[ln.strip() for ln in report.splitlines()
+                if any(w in ln for w in ("registers", "spill", "Compiling"))])
 
     # ---- kernels vs plain versions on the quadruped KKT ----------------------
     f32 = torch.float32
@@ -157,6 +172,10 @@ def main():
     fact_p = ldu.factorize(ds.plan, blocks)
     err_fact = (fact_k[0] - fact_p[0]).abs().max().item()
     check(err_fact < 5e-3, f"factorize: factored blocks differ by {err_fact} (atol 5e-3)")
+    # LU and PS may differ from the plain version's where pivot magnitudes
+    # tie to rounding; the contract on them is L·U = PS·D for every node
+    err_lu = lu_identity_err(*fact_k, sched.n_nodes)
+    check(err_lu < 1e-4, f"factorize: L·U − PS·D is {err_lu} of |PS·D| (1e-4)")
     # solve + refine (1 sweep): kernel route vs plain route, to 2e-5 of scale
     x_k = L.solve_refine(ds, blocks, fact_k, rhs, 1)
     x_p = ldu.solve(ds.plan, fact_p, rhs)
@@ -205,9 +224,19 @@ def main():
         "solve": "dojo_tpu/pallas_ldu.py:307",
         "matvec": "dojo_tpu/pallas_ldu.py:324",
     }
+    # one lane alone: the time of a lane's dependency chain (B=256 adds the
+    # traffic of all lanes and two lanes per SM)
+    b1, r1 = blocks[:1].contiguous(), rhs[:1].contiguous()
+    f1 = L.factorize(ds, b1)
+    lane_ms = {"factorize": time_ms(lambda: L.factorize(ds, b1), 20),
+               "solve": time_ms(lambda: L.solve(ds, f1, r1), 20)}
     table = {}
-    for name, (kern, plain, lib) in timings.items():
+    for k, (name, (kern, plain, lib)) in enumerate(timings.items()):
         ms = time_ms(kern, 20)
+        # the cap the runtime holds for the kernel, which its launcher sets
+        # to the bytes of each launch
+        smem = L.library().ldu_kernel_smem(k, 4)
+        check(smem > 0, f"{name}: cannot read the kernel's shared-memory attribute")
         plain_ms = time_ms(plain, 3)
         lib_ms = time_ms(lib, 20) if lib is not None else None
         bound_ms, bound_by = bound(*need[name])
@@ -215,10 +244,11 @@ def main():
             name=name, route="cuda", source="dojo_tpu_torch/csrc/ldu.cu",
             replaces=replaces[name], launches=0, max_abs_err=errors[name],
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=lib_ms, bytes=need[name][0], flops=need[name][1],
+            library_ms=lib_ms, ms_one_lane=lane_ms.get(name), smem_bytes=smem,
         )
-    emit("kernels", B=B, dtype="float32", relres=relres, solve_scale=scale,
-         kernels=[dict(t, kernel_ms=t["ms"], max_err=t["max_abs_err"]) for t in table.values()])
+    emit("kernels", B=B, dtype="float32", relres=relres, solve_scale=scale, lu_identity=err_lu,
+         kernels=[dict(t, bytes=need[t["name"]][0], flops=need[t["name"]][1])
+                  for t in table.values()])
 
     # ---- the main path: quadruped contact steps -------------------------------
     def chain(warm):

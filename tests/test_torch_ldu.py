@@ -142,8 +142,9 @@ def test_schedule_csr_layout(kkt32):
     sched = kkt32[0]
     a = L._csr(sched)
     assert list(a["level_ptr"]) == list(np.cumsum([0] + [len(lv.nodes) for lv in sched.levels]))
-    assert a["upd_tgt"].tolist() == [int(t) for lv in sched.levels for t in lv.upd_tgt]
-    assert a["fwd_ptr"][-1] == a["fwd_a"].size and a["bwd_ptr"][-1] == a["bwd_i"].size
+    assert a["upd_ai"].tolist() == [int(s) for lv in sched.levels for s in lv.upd_ai]
+    assert a["fwd_ai"].tolist() == [int(s) for lv in sched.levels for s in lv.fwd_ai]
+    assert a["bwd_ia"].tolist() == [int(s) for lv in sched.levels for s in lv.bwd_ia]
     rows = {s: ab[0] for ab, s in sched.slot.items()}
     for nd in range(sched.n_nodes):
         slots = a["row_slot"][a["row_ptr"][nd] : a["row_ptr"][nd + 1]]
