@@ -17,8 +17,19 @@ Phases, each printed as one JSON line with elapsed seconds:
   profile  — one warm step under torch.profiler: CUDA kernels launched,
              device busy share, and the top CPU operators by self time;
   reference— lane 0 of the validation step against one float64 step of the
-             same state through the plain path on the CPU.
-Then one {"kernels": [...]} line, the nvidia-smi line, and as the last line
+             same state through the plain path on the CPU;
+  mpc      — one control step of bench.py's phase "mpc" (rt, H=40, B=32
+             scenarios, α ∈ {1, 0.5, 0.25, 0.1}, float32): make_trot_rt's
+             rollout, linearize (54 tangent columns per knot against one
+             factorization), Riccati pass and α-batched forward pass, then
+             the plant step; wall ms per part, Newton iterations, rescued
+             lanes, okf, costs, best-α counts, sanitized knots, kernel
+             launches and peak memory.  It also holds solve and matvec
+             with a shared factorization (1,280 knots × 54 columns) to
+             their plain versions, and the float32 linearize on the card
+             to the plain float64 linearize on the CPU at 4 plant knots.
+Then one {"kernels": [...]} line (launches on the steps chains, and in the
+control step as launches_mpc), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the exit code is
 non-zero and the last line is not printed.  Without a CUDA device, or
 without the repository beside it, the script fails.
@@ -35,6 +46,13 @@ sys.path.insert(0, ROOT)
 T0 = time.perf_counter()
 B = 256  # lanes, as bench.py phase "steps"
 K = 3  # steps per chain
+MPC_B, MPC_H, MPC_DT = 32, 40, 0.05  # bench.py phase "mpc": scenarios, horizon, dt
+ALPHAS = (1.0, 0.5, 0.25, 0.1)
+# float32 linearize on the card against the plain float64 one on the CPU,
+# max(|ΔA|, |ΔB|) / max(1, |A|∞) at knots of the controller's rollout: the
+# same comparison with the float32 plain path on the CPU gave at most
+# 2.33e-5 over the 32 knots of a B=8, H=4 rollout; the tolerance is 10x that
+LIN_TOL = 2.5e-4
 H100 = {"bytes_per_s": 3.35e12, "f32_flops": 67e12, "f64_flops": 34e12}
 
 
@@ -82,8 +100,9 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def work(sched, lanes, elem):
-    """(bytes, flops) each kernel must move / execute for `lanes` lanes.
+def work(sched, lanes, elem, k=1):
+    """(bytes, flops) each kernel must move / execute for `lanes` lanes
+    (factorizations), with k right-hand sides each for solve and matvec.
 
     Bytes count each input read once and each output written once; flops
     count the arithmetic of the algorithm as the kernels execute it (pad
@@ -99,8 +118,9 @@ def work(sched, lanes, elem):
     edges = {int(s) for lv in sched.levels for s in list(lv.fwd_ai) + list(lv.bwd_ia)}
     return {
         "factorize": (elem * lanes * (2 * S * W * W + 2 * N * W * W), lanes * (lu + upd)),
-        "solve": (elem * lanes * ((len(edges) + 2 * N) * W * W + 2 * N * W), lanes * (fwd + bwd)),
-        "matvec": (elem * lanes * (S * W * W + 2 * N * W), lanes * 2 * S * W * W),
+        "solve": (elem * lanes * ((len(edges) + 2 * N) * W * W + 2 * k * N * W),
+                  lanes * k * (fwd + bwd)),
+        "matvec": (elem * lanes * (S * W * W + 2 * k * N * W), lanes * k * 2 * S * W * W),
     }
 
 
@@ -119,6 +139,170 @@ def lu_identity_err(fb, lu, ps, n_nodes):
 def bound(nbytes, flops):
     t_b, t_f = nbytes / H100["bytes_per_s"], flops / H100["f32_flops"]
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def launch_counts():
+    """Each LDU kernel's launches since the counts were last reset."""
+    from dojo_tpu_torch import ldu_cuda as L
+
+    return {fn.__name__: fn.launches for fn in (L.factorize, L.solve, L.matvec)}
+
+
+def mpc_phase(H=MPC_H, B=MPC_B, device="cuda"):
+    """One trot-MPC control step on the card (bench.py phase "mpc"), then
+    the shared-factorization kernels and the float32 linearize against
+    their plain versions.  Returns the kernel launches of the control step."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from dojo_tpu_torch import ldu, ldu_cuda as L, models
+    from dojo_tpu_torch.blocks import make_assembler
+    from dojo_tpu_torch.core import SolverOptions, tensor_map
+    from dojo_tpu_torch.gradients import make_rollout_linearize_minimal, to_maximal, to_minimal
+    from dojo_tpu_torch.graph import build_schedule
+    from dojo_tpu_torch.mpc import Trace, actuated_indices, make_trot_rt, trot_gains
+    from dojo_tpu_torch.mpc import trot_spring_params
+    from dojo_tpu_torch.residual import make_context, pad_inputs
+
+    class KernelTrace(Trace):
+        """Trace that also counts each part's kernel launches."""
+
+        @contextlib.contextmanager
+        def part(self, name, device):
+            before = launch_counts()
+            with super().part(name, device) as counts:
+                yield counts
+            after = launch_counts()
+            prev = counts.get("launches", {})
+            counts["launches"] = {k: prev.get(k, 0) + after[k] - before[k] for k in after}
+
+    f32, dev = torch.float32, torch.device(device)
+    mech = models.get_mechanism("quadruped", timestep=MPC_DT, device=dev).cast(f32)
+    topo = mech.topo
+    s0 = models.initialize(mech, "quadruped", body_position=(0, 0, -0.13))
+    y0 = to_minimal(topo, mech.params, tensor_map(lambda a: a[None], s0))[0]
+    ny = topo.minimal_dim
+    rt_opts = SolverOptions(rtol=1e-4, btol=1e-3, max_iter=16, rescue=True)
+    plant_opts = SolverOptions(rtol=1e-6, btol=1e-4, max_iter=30)
+    mpc, ref_fn, _ = make_trot_rt(mech, horizon=H, opts=rt_opts, dt=MPC_DT, alphas=ALPHAS,
+                                  iterations=1, device=dev)
+    gains = trot_gains(mech, joint_w=1.0, reg=10.0, du_max=1e9, kff=0.0, dtype=f32)
+    gains = gains._replace(Qd=gains.Qd.expand(H + 1, ny).contiguous())
+    params = trot_spring_params(mech, springs=40.0, dampers=4.0)
+    plant_step, plant_lin, plant_seed = make_rollout_linearize_minimal(topo, plant_opts,
+                                                                       device=dev)
+    act = torch.as_tensor(actuated_indices(mech), dtype=torch.long, device=dev)
+    rng = np.random.default_rng(0)
+    pert = np.zeros((B, ny), dtype=np.float32)
+    pert[:, :2] = rng.normal(scale=0.01, size=(B, 2))  # base xy
+    pert[:, 6:9] = rng.normal(scale=0.02, size=(B, 3))  # base velocity
+    ys = y0[None] + torch.as_tensor(pert, device=dev)
+    dus_warm = torch.zeros(B, H, 12, dtype=f32, device=dev)
+    goals = ref_fn(0.0)
+    w_plant = plant_seed(params, ys)
+
+    # ---- the control step (bench.py control_step) ---------------------------
+    trace = KernelTrace()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L.reset_launches()
+    t = time.perf_counter()
+    u0, dus_next, c, okf = mpc(params, ys, dus_warm, goals, *gains, trace=trace)
+    with trace.part("plant", dev) as plant_counts:
+        u_full = torch.zeros(B, topo.input_dim, dtype=f32, device=dev).index_copy(1, act, u0)
+        ys2, w2, mu2, ok = plant_step(params, ys, u_full, w_plant, stats=plant_counts)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    def plain(v):
+        if isinstance(v, torch.Tensor):
+            return v.tolist()
+        if isinstance(v, dict):
+            return {k: plain(x) for k, x in v.items()}
+        return v
+
+    parts = {}
+    for name, counts in trace.counts.items():
+        entry = {"ms": trace.ms[name], **plain({k: v for k, v in counts.items() if k != "cost"})}
+        if "lanes" in counts:
+            entry["iterations_per_lane"] = float(counts["iterations"]) / counts["lanes"]
+        parts[name] = entry
+    check(bool(torch.isfinite(u0).all()), "mpc: non-finite u0")
+    plant_success = ok.float().mean().item()
+    emit("mpc", B=B, H=H, dt=MPC_DT, alphas=list(ALPHAS), dtype="float32",
+         **({"reduced": {"H": H}} if H != MPC_H else {}),
+         control_step_ms=step_ms, parts=parts, okf=okf.mean().item(),
+         cost_before=plain(trace.counts["rollout"]["cost"]),
+         cost_after=plain(trace.counts["forward"]["cost"]),
+         plant_success=plant_success, launches=launches, peak_memory_bytes=peak,
+         u0_abs_max=u0.abs().max().item())
+    check(plant_success >= 0.9, f"mpc: plant-step success {plant_success} < 0.9")
+    for n, cnt in launches.items():
+        check(cnt > 0, f"kernel {n} was not launched in the control step")
+
+    # ---- shared factorization at the rollout's knots: B·H knots x 54 columns
+    sched = build_schedule(topo)
+    ds = L.DeviceSchedule(sched, dev)
+    r_ys, r_us, r_ws, r_mus = trace.linearized_at
+    knots, C = B * H, topo.minimal_dim + topo.input_dim
+    flat = lambda a: a.reshape(knots, *a.shape[2:])
+    k_y, k_w, k_mu = flat(r_ys[:, :-1]), flat(r_ws), flat(r_mus)
+    k_u = torch.zeros(knots, topo.input_dim, dtype=f32, device=dev).index_copy(1, act, flat(r_us))
+    kctx = make_context(topo, to_maximal(topo, params, k_y), params, pad_inputs(topo, k_u))
+    blocks = make_assembler(topo, sched, dev)(k_w, kctx, params, k_mu).contiguous()
+    fact = L.factorize(ds, blocks)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    flat_rhs = torch.randn((knots * C, topo.dim), generator=gen, dtype=f32).to(dev)
+    rhs = L.flat_to_nodes(ds.plan, flat_rhs).contiguous()
+    x_k = L.solve_refine(ds, blocks, fact, rhs, 1, rhs_per_fact=C)
+    x_p = ldu.solve(ds.plan, fact, rhs, C)
+    x_p = x_p + ldu.solve(ds.plan, fact, rhs - ldu.matvec(ds.plan, blocks, x_p, C), C)
+    scale = x_p.abs().max().item()
+    err_solve = (x_k - x_p).abs().max().item()
+    y_k = L.matvec(ds, blocks, x_k, C)
+    y_p = ldu.matvec(ds.plan, blocks, x_k, C)
+    mag = ldu.matvec(ds.plan, blocks.abs(), x_k.abs(), C)
+    err_mv = (y_k - y_p).abs().max().item()
+    need = work(sched, knots, 4, C)
+    shared = {}
+    for name, kern, pl in (
+        ("solve", lambda: L.solve(ds, fact, rhs, C), lambda: ldu.solve(ds.plan, fact, rhs, C)),
+        ("matvec", lambda: L.matvec(ds, blocks, x_k, C),
+         lambda: ldu.matvec(ds.plan, blocks, x_k, C)),
+    ):
+        bound_ms, bound_by = bound(*need[name])
+        shared[name] = dict(ms=time_ms(kern, 5), plain_ms=time_ms(pl, 2), bound_ms=bound_ms,
+                            bound_by=bound_by, bytes=need[name][0], flops=need[name][1])
+    shared["solve"]["max_abs_err"], shared["matvec"]["max_abs_err"] = err_solve, err_mv
+    emit("mpc_shared_factor", knots=knots, rhs_per_fact=C, lanes=knots * C, solve_scale=scale,
+         kernels=shared)
+    check(err_solve / scale < 2e-5, f"shared solve: {err_solve} of scale {scale} (2e-5)")
+    check(bool(((y_k - y_p).abs() <= 1e-5 * mag + 1e-30).all()),
+          f"shared matvec: max error {err_mv} exceeds 1e-5·Σ|E||x|")
+
+    # ---- float32 linearize on the card vs plain float64 on the CPU, at 4 of
+    # the rollout's knots (4 scenarios, 4 knots along the horizon)
+    lanes = torch.arange(4, device=dev) * B // 4
+    steps = torch.arange(4, device=dev) * H // 4
+    pick = lambda a: a[lanes, steps]
+    l_y, l_w, l_mu = pick(r_ys), pick(r_ws), pick(r_mus)
+    l_u = torch.zeros(4, topo.input_dim, dtype=f32, device=dev).index_copy(1, act, pick(r_us))
+    A32, B32 = plant_lin(params, l_y, l_u, l_w, l_mu)
+    mech64 = models.get_mechanism("quadruped", timestep=MPC_DT, device="cpu")
+    p64 = trot_spring_params(mech64, springs=40.0, dampers=4.0)
+    _, lin64, _ = make_rollout_linearize_minimal(mech64.topo, plant_opts, device="cpu")
+    A64, B64 = lin64(p64, *(a.cpu().double() for a in (l_y, l_u, l_w, l_mu)))
+    scale_a = max(1.0, A64.abs().max().item())
+    err_lin = max((A32.cpu().double() - A64).abs().max().item(),
+                  (B32.cpu().double() - B64).abs().max().item()) / scale_a
+    emit("mpc_linearize", scenarios=lanes.tolist(), knots=steps.tolist(), rel_err=err_lin,
+         tol=LIN_TOL, A_inf=scale_a)
+    check(err_lin < LIN_TOL, f"float32 linearize: {err_lin} of max(1, |A|) (tol {LIN_TOL})")
+    return launches
 
 
 def main():
@@ -284,9 +468,9 @@ def main():
 
     L.reset_launches()
     _, cold = chain(False)
-    cold["launches"] = {fn.__name__: fn.launches for fn in (L.factorize, L.solve, L.matvec)}
+    cold["launches"] = launch_counts()
     _, warm = chain(True)
-    launches = {fn.__name__: fn.launches for fn in (L.factorize, L.solve, L.matvec)}
+    launches = launch_counts()
     warm["launches"] = {k: launches[k] - cold["launches"][k] for k in launches}
     kernel_s = sum(launches[n] * table[n]["ms"] for n in table) / 1e3
     emit("steps", B=B, K=K, h=0.05, dtype="float32", validate=validate, cold=cold, warm=warm,
@@ -327,8 +511,10 @@ def main():
     check(bool(info64.success[0]) and dx < 1e-5 and dv < 2e-4,
           f"card step disagrees with the float64 reference: dx={dx} dv={dv}")
 
+    launches_mpc = mpc_phase()
     for n in table:
         table[n]["launches"] = launches[n]
+        table[n]["launches_mpc"] = launches_mpc[n]
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -133,9 +133,21 @@ def _mv(A, x):
     return (A @ x.unsqueeze(-1)).squeeze(-1)
 
 
-def solve(plan: LduPlan, fact, b: torch.Tensor) -> torch.Tensor:
-    """Two-pass backsubstitution on node vectors b (..., N, W)."""
-    fb, LU, PS = fact
+def _per_fact(k, factors, v):
+    """Node vectors v (B·k, N, W) as (B, k, N, W), and the factors (B, ...)
+    as (B, 1, ...) so that they broadcast over the k vectors of each lane."""
+    if k == 1:
+        return factors, v
+    return [f.unsqueeze(1) for f in factors], v.reshape(-1, k, *v.shape[1:])
+
+
+def solve(plan: LduPlan, fact, b: torch.Tensor, rhs_per_fact: int = 1) -> torch.Tensor:
+    """Two-pass backsubstitution on node vectors b (..., N, W).
+
+    With ``rhs_per_fact`` = k > 1, b is (B·k, N, W) against a factorization
+    of B lanes: vector l is solved with the factors of lane l // k."""
+    shape = b.shape
+    (fb, LU, PS), b = _per_fact(rhs_per_fact, fact, b)
     node_dim = b.ndim - 2
     b = b.clone()
     for lv in plan.levels:  # forward: leaves → root, b_a -= E_ai D_i⁻¹ b_i
@@ -150,14 +162,20 @@ def solve(plan: LduPlan, fact, b: torch.Tensor) -> torch.Tensor:
             b.index_add_(node_dim, lv["bwd_i"], -contrib)
         nodes = lv["nodes"]
         x[..., nodes, :] = blu_solve(LU[..., nodes, :, :], PS[..., nodes, :, :], b[..., nodes, :])
-    return x
+    return x.reshape(shape)
 
 
-def matvec(plan: LduPlan, blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Exact block product y[a] = Σ_{slots (a,b)} block·x[b] on node vectors."""
+def matvec(plan: LduPlan, blocks: torch.Tensor, x: torch.Tensor,
+           rhs_per_fact: int = 1) -> torch.Tensor:
+    """Exact block product y[a] = Σ_{slots (a,b)} block·x[b] on node vectors.
+
+    With ``rhs_per_fact`` = k > 1, x is (B·k, N, W) against blocks of B
+    lanes: vector l is multiplied by the blocks of lane l // k."""
+    shape = x.shape
+    (blocks,), x = _per_fact(rhs_per_fact, [blocks], x)
     contrib = _mv(blocks, x[..., plan.slot_b, :])
     y = torch.zeros_like(x)
-    return y.index_add_(x.ndim - 2, plan.slot_a, contrib)
+    return y.index_add_(x.ndim - 2, plan.slot_a, contrib).reshape(shape)
 
 
 def flat_to_nodes(plan: LduPlan, rhs: torch.Tensor) -> torch.Tensor:

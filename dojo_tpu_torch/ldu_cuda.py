@@ -116,8 +116,8 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         for dt in ("f32", "f64"):
             getattr(lib, f"ldu_factorize_{dt}").argtypes = [p, p, i, p, p, p, p, p]
-            getattr(lib, f"ldu_solve_{dt}").argtypes = [p, p, i, p, p, p, p, p, p]
-            getattr(lib, f"ldu_matvec_{dt}").argtypes = [p, i, p, p, p, p]
+            getattr(lib, f"ldu_solve_{dt}").argtypes = [p, p, i, i, p, p, p, p, p, p]
+            getattr(lib, f"ldu_matvec_{dt}").argtypes = [p, i, i, p, p, p, p]
             for fn in ("factorize", "solve", "matvec"):
                 getattr(lib, f"ldu_{fn}_{dt}").restype = i
         lib.ldu_max_width.restype = i
@@ -316,8 +316,11 @@ class DeviceSchedule:
         return self._layouts[kernel, dtype]
 
 
-def _cuda_args(ds: DeviceSchedule, **tensors):
-    """Validate CUDA inputs of one launch; returns (fn suffix, B, device)."""
+def _cuda_args(ds: DeviceSchedule, rhs_per_fact=1, **tensors):
+    """Validate CUDA inputs of one launch; returns (fn suffix, B, device).
+
+    B is the lane count of the first tensor (blocks, or the factors); node
+    vectors ``x`` hold ``rhs_per_fact`` lanes for each of those B."""
     sched = ds.sched
     N, S, W = sched.n_nodes, sched.n_slots, sched.width
     expect = {"blocks": (S, W, W), "lu": (N, W, W), "ps": (N, W, W), "x": (N, W)}
@@ -326,12 +329,15 @@ def _cuda_args(ds: DeviceSchedule, **tensors):
         raise TypeError(f"LDU kernels take float32 or float64, got {first.dtype}")
     if ds.buf.device != first.device:
         raise ValueError(f"schedule on {ds.buf.device}, tensors on {first.device}")
+    if not isinstance(rhs_per_fact, int) or rhs_per_fact < 1:
+        raise ValueError(f"rhs_per_fact must be a positive int, got {rhs_per_fact!r}")
     B = first.shape[0]
     for name, t in tensors.items():
         if t.device != first.device or t.dtype != first.dtype:
             raise ValueError(f"{name}: {t.device}/{t.dtype} differs from {first.device}/{first.dtype}")
-        if tuple(t.shape) != (B, *expect[name]):
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {(B, *expect[name])}")
+        lanes = B * rhs_per_fact if name == "x" else B
+        if tuple(t.shape) != (lanes, *expect[name]):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {(lanes, *expect[name])}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernels take contiguous tensors")
     suffix = "f32" if first.dtype == torch.float32 else "f64"
@@ -389,8 +395,11 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
 factorize.launches = 0
 
 
-def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor) -> torch.Tensor:
-    """Two-pass block backsubstitution on node vectors (B, N, W).
+def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) -> torch.Tensor:
+    """Two-pass block backsubstitution on node vectors (B·k, N, W) against
+    the factorization of B lanes, k = ``rhs_per_fact``: right-hand side l
+    is solved with the factors of lane l // k, which are read in place (no
+    copy per right-hand side).
 
     Replaces solve_kernel / _call_solve (dojo_tpu/pallas_ldu.py:286, :304).
     Bound on the card: each lane's dependency chain of 2×8 level passes,
@@ -402,12 +411,12 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor) -> torch.Tensor:
     CTA barrier per level pass."""
     fb, lu, ps = fact
     if not _plain_or_cuda(rhs):
-        return ldu.solve(ds.plan, fact, rhs)
-    suffix, B, dev = _cuda_args(ds, blocks=fb, lu=lu, ps=ps, x=rhs)
+        return ldu.solve(ds.plan, fact, rhs, rhs_per_fact)
+    suffix, B, dev = _cuda_args(ds, rhs_per_fact, blocks=fb, lu=lu, ps=ps, x=rhs)
     layout = ds.layout("solve", rhs.dtype)
     out = torch.empty_like(rhs)
     if B:
-        _launch("solve", suffix, ds, dev, ctypes.byref(layout), B,
+        _launch("solve", suffix, ds, dev, ctypes.byref(layout), B * rhs_per_fact, rhs_per_fact,
                 fb.data_ptr(), lu.data_ptr(), ps.data_ptr(), rhs.data_ptr(), out.data_ptr())
         solve.launches += 1
     return out
@@ -416,19 +425,23 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor) -> torch.Tensor:
 solve.launches = 0
 
 
-def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Exact block product y[a] = Σ_{slots (a,b)} block·x[b], node vectors.
+def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor,
+           rhs_per_fact: int = 1) -> torch.Tensor:
+    """Exact block product y[a] = Σ_{slots (a,b)} block·x[b], node vectors
+    (B·k, N, W) against blocks (B, S, W, W), k = ``rhs_per_fact``: vector l
+    is multiplied by the blocks of lane l // k.
 
     Replaces matvec_kernel / _call_matvec (dojo_tpu/pallas_ldu.py:292, :321).
     Bound on the card: reading the (B, S, W, W) blocks once (bytes).
     Design: one CTA per lane, x in shared memory, one thread per output
     row summing its node's slots in slot order."""
     if not _plain_or_cuda(x):
-        return ldu.matvec(ds.plan, blocks, x)
-    suffix, B, dev = _cuda_args(ds, blocks=blocks, x=x)
+        return ldu.matvec(ds.plan, blocks, x, rhs_per_fact)
+    suffix, B, dev = _cuda_args(ds, rhs_per_fact, blocks=blocks, x=x)
     out = torch.empty_like(x)
     if B:
-        _launch("matvec", suffix, ds, dev, B, blocks.data_ptr(), x.data_ptr(), out.data_ptr())
+        _launch("matvec", suffix, ds, dev, B * rhs_per_fact, rhs_per_fact,
+                blocks.data_ptr(), x.data_ptr(), out.data_ptr())
         matvec.launches += 1
     return out
 
@@ -436,12 +449,14 @@ def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor) -> torch.T
 matvec.launches = 0
 
 
-def solve_refine(ds: DeviceSchedule, blocks, fact, rhs: torch.Tensor, n_ref: int):
+def solve_refine(ds: DeviceSchedule, blocks, fact, rhs: torch.Tensor, n_ref: int,
+                 rhs_per_fact: int = 1):
     """Solve, then ``n_ref`` × (matvec, solve) iterative-refinement sweeps —
     the order of dojo_tpu/pallas_ldu.py solve_b."""
-    x = solve(ds, fact, rhs)
+    k = rhs_per_fact
+    x = solve(ds, fact, rhs, k)
     for _ in range(n_ref):
-        x = x + solve(ds, fact, rhs - matvec(ds, blocks, x))
+        x = x + solve(ds, fact, rhs - matvec(ds, blocks, x, k), k)
     return x
 
 

@@ -136,14 +136,20 @@ def input_impulses(topo: Topology, state: BodyState, params: Params, u):
 
 def pad_inputs(topo: Topology, u_packed):
     """Packed inputs (..., input_dim) → padded (..., nj, 6) rows (per joint:
-    translational free coords, then rotational free coords)."""
-    cols = []
+    translational free coords, then rotational free coords).
+
+    A gather from the packed vector with a zero appended (index input_dim
+    reads the zero), out of place so that torch.func transforms trace it."""
+    n = u_packed.shape[-1]
+    src = np.full(topo.nj * 6, n, dtype=np.int64)
+    k = 0
     for j in range(topo.nj):
-        cols.extend(j * 6 + i for i in range(topo.tra_nfree[j]))
-        cols.extend(j * 6 + 3 + i for i in range(topo.rot_nfree[j]))
-    out = u_packed.new_zeros(*u_packed.shape[:-1], topo.nj * 6)
-    if cols:
-        out[..., torch.as_tensor(cols, device=u_packed.device)] = u_packed
+        for i in range(topo.tra_nfree[j]):
+            src[j * 6 + i], k = k, k + 1
+        for i in range(topo.rot_nfree[j]):
+            src[j * 6 + 3 + i], k = k, k + 1
+    padded = torch.nn.functional.pad(u_packed, (0, 1))
+    out = padded[..., torch.as_tensor(src, device=u_packed.device)]
     return out.reshape(*u_packed.shape[:-1], topo.nj, 6)
 
 

@@ -104,13 +104,16 @@ def _where(mask, new, old):
     return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
 
 
-def make_solver(topo: Topology, device=None):
+def make_solver(topo: Topology, device=None, linsolve: str = "auto"):
     """Build (init_w, solve, violations) for a topology on a device.
 
-    The Newton systems go through the graph-sparse block LDU when the
-    mechanism graph has an elimination schedule (it is loop-free), else
-    through the dense LU.
+    linsolve "auto": the Newton systems go through the graph-sparse block
+    LDU when the mechanism graph has an elimination schedule (it is
+    loop-free), else through the dense LU; "dense" forces the dense pivoted
+    LU (the rescue's path) for every lane, with no rescue pass.
     """
+    if linsolve not in ("auto", "dense"):
+        raise ValueError(f"linsolve must be 'auto' or 'dense', got {linsolve!r}")
     device = resolve_device(device)
     # true float32: TF32 passes would break the Newton pipeline
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,7 +121,7 @@ def make_solver(topo: Topology, device=None):
 
     res_fn = Residual(topo, device)
     cones = cone_index_sets(topo)
-    sched = build_schedule(topo)
+    sched = build_schedule(topo) if linsolve == "auto" else None
     if sched is not None:
         assemble = Assembler(topo, sched, device)
         dsched = L.DeviceSchedule(sched, device)

@@ -99,3 +99,33 @@ def test_factorize_solve_odd_batch_on_cuda(lanes):
         x_ref = ldu.solve(ds.plan, fact, b)
         assert float((x - x_ref).abs().max()) / float(x_ref.abs().max()) < tol
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 54])
+def test_shared_factor_solve_matvec_on_cuda(k):
+    """solve and matvec with rhs_per_fact=k (k right-hand sides read each
+    lane's factors in place) against their plain versions on the card,
+    float32 and float64, with the test_pallas_ldu.py tolerances; the
+    shapes of a knot's 54 tangent columns in linearize."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    for dtype, tol in ((torch.float32, 2e-5), (torch.float64, 1e-10)):
+        sched, blocks, _ = quadruped_kkt(dtype, "cuda")
+        ds = L.DeviceSchedule(sched, "cuda")
+        fact = L.factorize(ds, blocks)
+        noise = np.random.default_rng(k).standard_normal((blocks.shape[0] * k, 356))
+        b = L.flat_to_nodes(ds.plan, torch.as_tensor(noise, dtype=dtype, device="cuda"))
+        b = b.contiguous()
+        L.reset_launches()
+        x = L.solve_refine(ds, blocks, fact, b, 1, rhs_per_fact=k)
+        assert (L.solve.launches, L.matvec.launches) == (2, 1)
+        x_ref = ldu.solve(ds.plan, fact, b, k)
+        x_ref = x_ref + ldu.solve(ds.plan, fact, b - ldu.matvec(ds.plan, blocks, x_ref, k), k)
+        assert x.shape == b.shape
+        assert float((x - x_ref).abs().max()) / float(x_ref.abs().max()) < tol
+        y = L.matvec(ds, blocks, x, k)
+        mag = ldu.matvec(ds.plan, blocks.abs(), x.abs(), k)
+        assert bool(((y - ldu.matvec(ds.plan, blocks, x, k)).abs() <= 1e-5 * mag + 1e-30).all())
+        with pytest.raises(ValueError):
+            L.solve(ds, fact, b[:-1].contiguous(), k) if k > 1 else L.matvec(ds, blocks, b, 2)
