@@ -1,7 +1,8 @@
 """Mechanism construction: bodies + joints + contacts → (Topology, Params).
 
-Counterpart of dojo_tpu/builder.py for what the quadruped needs: bodies
-with explicit inertia, any joint kind of the masked joint kernel (floating
+Counterpart of dojo_tpu/builder.py for what the ported models need: bodies
+with explicit inertia or the inertia of a box, cylinder or sphere, any joint
+kind of the masked joint kernel (floating
 base, revolute, ...), sphere–halfspace contacts, joint limits, springs,
 dampers and spring offsets.  Everything is computed host-side in numpy
 float64 and moved to the device once, as one tensor per Params field.
@@ -44,10 +45,29 @@ class Body:
     name: str
     mass: float
     inertia: np.ndarray  # (3,3) or (3,) diagonal
+    shape: Optional[dict] = None  # geometry: contact radii and lengths, visuals
 
     def inertia_matrix(self):
         J = np.asarray(self.inertia, dtype=np.float64)
         return np.diag(J) if J.ndim == 1 else J
+
+
+def box_body(name, x, y, z, mass):
+    """A solid box of edges x, y, z."""
+    J = mass / 12.0 * np.diag([y**2 + z**2, x**2 + z**2, x**2 + y**2])
+    return Body(name, mass, J, shape={"type": "box", "xyz": (x, y, z)})
+
+
+def cylinder_body(name, r, h, mass):
+    """A solid cylinder of radius r and height h along z."""
+    J = mass * np.diag([(3 * r**2 + h**2) / 12, (3 * r**2 + h**2) / 12, r**2 / 2])
+    return Body(name, mass, J, shape={"type": "cylinder", "rh": (r, h)})
+
+
+def sphere_body(name, r, mass):
+    """A solid sphere of radius r."""
+    J = mass * 2.0 / 5.0 * r**2 * np.eye(3)
+    return Body(name, mass, J, shape={"type": "sphere", "r": r})
 
 
 @dataclasses.dataclass

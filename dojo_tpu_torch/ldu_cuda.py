@@ -1,11 +1,19 @@
 """The three block-LDU kernels (csrc/ldu.cu) and their wrappers.
 
 Each wrapper takes the plain PyTorch version (ldu.py) for a tensor on the
-CPU and launches the CUDA kernel for a tensor on a CUDA device; a CUDA
-tensor the kernel cannot take (W > 16, a lane over the shared-memory limit
-of a CTA (``smem_layout``), not contiguous, not float32/float64, not
-(B, ...) batch-major) raises.  There is no fallback.  Each wrapper
-counts its kernel launches in ``<wrapper>.launches`` (a plain integer).
+CPU, at any block width, and launches the CUDA kernel for a tensor on a
+CUDA device; a CUDA tensor the kernels cannot take (W > MAXW = 72, a lane
+over the shared-memory limit of a CTA (``smem_layout``), not contiguous,
+not float32/float64, not (B, ...) batch-major) raises.  There is no
+fallback.
+
+The kernels come in three width classes (``WIDTH_CLASSES``), each a kernel
+of its own picked from the schedule's block width W: W <= 16 (a half-warp
+per block, tiles padded to 16), 17..32 (a warp per block, tiles padded to
+W rounded up to a multiple of 8) and 33..72 (the whole CTA per block, a
+thread per row, tiles of W).  Each wrapper counts its kernel launches in
+``<wrapper>.launches`` (a plain integer, all classes) and per class in
+``<wrapper>.class_launches``.
 
 The library is built at first use with nvcc for sm_90a into ``_build/``
 (listed in .gitignore), keyed on a hash of the source and flags, and loaded
@@ -30,8 +38,26 @@ from . import ldu
 from .graph import Schedule
 from .ldu import flat_to_nodes, nodes_to_flat  # noqa: F401  (node-vector gathers)
 
-MAXW = 16  # compile-time bound on the block width (csrc/ldu.cu MAXW)
-NGROUPS = 16  # 16-lane groups of one CTA (csrc/ldu.cu NGROUPS)
+MAXW = 72  # the widest block the kernels take (csrc/ldu.cu ldu_max_width)
+# width classes: name -> (widest W, groups of a CTA (each works on one block))
+WIDTH_CLASSES = {"w16": (16, 16), "w32": (32, 8), "w72": (MAXW, 1)}
+
+
+def width_class(W: int) -> str:
+    """The kernels' class for block width W (raises for W > MAXW)."""
+    for name, (widest, _) in WIDTH_CLASSES.items():
+        if W <= widest:
+            return name
+    raise ValueError(f"block width {W} exceeds the kernels' MAXW={MAXW}")
+
+
+def tile_width(W: int) -> int:
+    """The padded width of a W x W tile in shared memory (csrc/ldu.cu
+    ldu_tile): 16 for W <= 16, W rounded up to a multiple of 8 up to 32,
+    W itself above."""
+    cls = width_class(W)
+    return 16 if cls == "w16" else -(-W // 8) * 8 if cls == "w32" else W
+
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "ldu.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = [
@@ -59,7 +85,8 @@ class _Sched(ctypes.Structure):
 
 
 class _FactLayout(ctypes.Structure):  # C struct FactLayout (see smem_layout)
-    _fields_ = [(n, ctypes.c_int) for n in ("fb", "lu", "x", "rd", "psc", "prow", "si", "bytes")]
+    _fields_ = [(n, ctypes.c_int)
+                for n in ("fb", "lu", "x", "rd", "psc", "red", "prow", "si", "bytes")]
 
 
 class _SolveLayout(ctypes.Structure):  # C struct SolveLayout (see smem_layout)
@@ -121,10 +148,14 @@ def library() -> ctypes.CDLL:
             for fn in ("factorize", "solve", "matvec"):
                 getattr(lib, f"ldu_{fn}_{dt}").restype = i
         lib.ldu_max_width.restype = i
-        lib.ldu_kernel_smem.argtypes = [i, i]
+        lib.ldu_tile.argtypes = [i]
+        lib.ldu_tile.restype = i
+        lib.ldu_kernel_smem.argtypes = [i, i, i]
         lib.ldu_kernel_smem.restype = i
         if lib.ldu_max_width() != MAXW:
-            raise RuntimeError("csrc/ldu.cu MAXW differs from ldu_cuda.MAXW")
+            raise RuntimeError("csrc/ldu.cu's widest block differs from ldu_cuda.MAXW")
+        if any(lib.ldu_tile(W) != tile_width(W) for W in range(1, MAXW + 1)):
+            raise RuntimeError("csrc/ldu.cu ldu_tile differs from ldu_cuda.tile_width")
         _LIBS["lib"] = lib
     return _LIBS["lib"]
 
@@ -243,34 +274,39 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None)
     offset of each array (csrc/ldu.cu FactLayout / SolveLayout), and the
     CTA's dynamic shared memory in all (``bytes``).  ``buf_len`` is the
     length of the schedule's int32 CSR buffer, copied to shared memory.
+    Tiles are padded to ``tile_width`` of the schedule's width class.
     Raises ValueError for a schedule whose lane does not fit the 227 KB a
     CTA can have."""
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
-    N, S, WW, TILE = sched.n_nodes, sched.n_slots, sched.width**2, MAXW * MAXW
+    TW = tile_width(sched.width)
+    NGROUPS = WIDTH_CLASSES[width_class(sched.width)][1]
+    N, S, WW, TILE = sched.n_nodes, sched.n_slots, sched.width**2, TW * TW
     if kernel == "factorize":
         K = _max_nodes(sched)
         sizes = {
             "fb": S * WW * elem,  # the lane's blocks, factored in place
             "lu": K * TILE * elem,  # LU tiles of one level's nodes
             "x": _max_pairs(sched) * TILE * elem,  # X tiles of one level's pairs
-            "rd": K * MAXW * elem,  # 1 / diag(U) of those nodes
-            "psc": K * MAXW * elem,  # their PS row scales
-            "prow": K * MAXW * 4,  # their PS row sources
+            "rd": K * TW * elem,  # 1 / diag(U) of those nodes
+            "psc": K * TW * elem,  # their PS row scales
+            # the 33..72 class's pivot search: 2 x 4 warp winners and keys
+            "red": (8 * elem + 32) if width_class(sched.width) == "w72" else 0,
+            "prow": K * TW * 4,  # their PS row sources
             "si": buf_len * 4,  # the schedule
         }
     elif kernel == "solve":
         sizes = {
             "e": (S - N) * WW * elem,  # the edge blocks (slots N..S-1)
             "lu": N * TILE * elem,  # LU tiles
-            "rd": N * MAXW * elem,  # 1 / diag(U)
-            "psc": N * MAXW * elem,  # PS row scales
-            "b": N * MAXW * elem,  # right-hand side
-            "t": N * MAXW * elem,  # D^{-1} b of the forward pass
-            "x": N * MAXW * elem,  # solution
-            "y": NGROUPS * MAXW * elem,  # PS·b of each group's node
-            "prow": N * MAXW * 4,  # PS row sources
+            "rd": N * TW * elem,  # 1 / diag(U)
+            "psc": N * TW * elem,  # PS row scales
+            "b": N * TW * elem,  # right-hand side
+            "t": N * TW * elem,  # D^{-1} b of the forward pass
+            "x": N * TW * elem,  # solution
+            "y": NGROUPS * TW * elem,  # PS·b of each group's node
+            "prow": N * TW * 4,  # PS row sources
             "si": buf_len * 4,  # the schedule
         }
     else:
@@ -290,8 +326,6 @@ class DeviceSchedule:
     tensors (``plan``) and the kernels' int32 CSR buffer with its C struct."""
 
     def __init__(self, sched: Schedule, device):
-        if sched.width > MAXW:
-            raise ValueError(f"block width {sched.width} exceeds the kernels' MAXW={MAXW}")
         self.sched = sched
         self.plan = ldu.LduPlan(sched, device)
         arrays = _csr(sched)
@@ -320,9 +354,11 @@ def _cuda_args(ds: DeviceSchedule, rhs_per_fact=1, **tensors):
     """Validate CUDA inputs of one launch; returns (fn suffix, B, device).
 
     B is the lane count of the first tensor (blocks, or the factors); node
-    vectors ``x`` hold ``rhs_per_fact`` lanes for each of those B."""
+    vectors ``x`` hold ``rhs_per_fact`` lanes for each of those B.  Raises
+    for a block width no kernel takes."""
     sched = ds.sched
     N, S, W = sched.n_nodes, sched.n_slots, sched.width
+    width_class(W)
     expect = {"blocks": (S, W, W), "lu": (N, W, W), "ps": (N, W, W), "x": (N, W)}
     first = next(iter(tensors.values()))
     if first.dtype not in (torch.float32, torch.float64):
@@ -344,14 +380,18 @@ def _cuda_args(ds: DeviceSchedule, rhs_per_fact=1, **tensors):
     return suffix, B, first.device
 
 
-def _launch(name, suffix, ds, device, *args):
-    """Launch ldu_<name>_<suffix> on the device's current stream."""
+def _launch(wrapper, suffix, ds, device, *args):
+    """Launch ldu_<name>_<suffix> (the kernel of the schedule's width class)
+    on the device's current stream, and count it on its wrapper."""
+    name = wrapper.__name__
     fn = getattr(library(), f"ldu_{name}_{suffix}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(ctypes.byref(ds.struct), *args, stream)
     if rc != 0:
         raise RuntimeError(f"ldu_{name}_{suffix}: CUDA error {rc}")
+    wrapper.launches += 1
+    wrapper.class_launches[width_class(ds.sched.width)] += 1
 
 
 def _plain_or_cuda(t: torch.Tensor) -> bool:
@@ -376,7 +416,9 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
     run at once, a half-warp per node with its rows in registers, pivoting
     by shuffles without moving rows; X = D_i⁻¹E_{i,b} once per distinct
     pair, then each target block reduced by one half-warp in list order.
-    Three CTA barriers per level."""
+    Three CTA barriers per level.  17 <= W <= 32: the same with a warp per
+    node; 33 <= W <= 72: the CTA on one node at a time, a thread per row,
+    one CTA barrier per pivot."""
     if not _plain_or_cuda(blocks):
         return ldu.factorize(ds.plan, blocks)
     suffix, B, dev = _cuda_args(ds, blocks=blocks)
@@ -386,13 +428,9 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
     lu = blocks.new_empty(B, N, W, W)
     ps = blocks.new_empty(B, N, W, W)
     if B:
-        _launch("factorize", suffix, ds, dev, ctypes.byref(layout), B,
+        _launch(factorize, suffix, ds, dev, ctypes.byref(layout), B,
                 blocks.data_ptr(), fb.data_ptr(), lu.data_ptr(), ps.data_ptr())
-        factorize.launches += 1
     return fb, lu, ps
-
-
-factorize.launches = 0
 
 
 def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) -> torch.Tensor:
@@ -408,7 +446,9 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) ->
     form) and the schedule in shared memory; a half-warp per node of a
     level pulls the edge contributions to its node in list order, gathers
     PS·b, and one lane substitutes with the node's LU in registers.  One
-    CTA barrier per level pass."""
+    CTA barrier per level pass.  17 <= W <= 32: the same with a warp per
+    node; 33 <= W <= 72: the CTA on one node at a time, a thread per row,
+    one CTA barrier per substitution step."""
     fb, lu, ps = fact
     if not _plain_or_cuda(rhs):
         return ldu.solve(ds.plan, fact, rhs, rhs_per_fact)
@@ -416,13 +456,9 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) ->
     layout = ds.layout("solve", rhs.dtype)
     out = torch.empty_like(rhs)
     if B:
-        _launch("solve", suffix, ds, dev, ctypes.byref(layout), B * rhs_per_fact, rhs_per_fact,
+        _launch(solve, suffix, ds, dev, ctypes.byref(layout), B * rhs_per_fact, rhs_per_fact,
                 fb.data_ptr(), lu.data_ptr(), ps.data_ptr(), rhs.data_ptr(), out.data_ptr())
-        solve.launches += 1
     return out
-
-
-solve.launches = 0
 
 
 def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor,
@@ -440,13 +476,9 @@ def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor,
     suffix, B, dev = _cuda_args(ds, rhs_per_fact, blocks=blocks, x=x)
     out = torch.empty_like(x)
     if B:
-        _launch("matvec", suffix, ds, dev, B * rhs_per_fact, rhs_per_fact,
+        _launch(matvec, suffix, ds, dev, B * rhs_per_fact, rhs_per_fact,
                 blocks.data_ptr(), x.data_ptr(), out.data_ptr())
-        matvec.launches += 1
     return out
-
-
-matvec.launches = 0
 
 
 def solve_refine(ds: DeviceSchedule, blocks, fact, rhs: torch.Tensor, n_ref: int,
@@ -461,5 +493,10 @@ def solve_refine(ds: DeviceSchedule, blocks, fact, rhs: torch.Tensor, n_ref: int
 
 
 def reset_launches():
+    """Set every wrapper's launch counts to 0."""
     for fn in (factorize, solve, matvec):
         fn.launches = 0
+        fn.class_launches = dict.fromkeys(WIDTH_CLASSES, 0)
+
+
+reset_launches()

@@ -109,3 +109,18 @@ def maximal_to_minimal(topo: Topology, params: Params, state: BodyState):
     if not parts:
         return torch.zeros(0, dtype=dtype, device=dev)
     return torch.cat(parts)
+
+
+def set_joint_minimal(topo: Topology, params: Params, state: BodyState, joint_index,
+                      coords=None, velocities=None) -> BodyState:
+    """Overwrite one joint's minimal coordinates and/or velocities, keeping
+    every other joint's: a round trip through the whole minimal vector, so
+    the bodies downstream of the joint move with it."""
+    y = maximal_to_minimal(topo, params, state).clone()
+    off, nt, nr = _joint_slices(topo)[0][joint_index]
+    as_y = lambda v: torch.as_tensor(v, dtype=y.dtype, device=y.device).reshape(-1)
+    if coords is not None:
+        y[off : off + nt + nr] = as_y(coords)
+    if velocities is not None:
+        y[off + nt + nr : off + 2 * (nt + nr)] = as_y(velocities)
+    return minimal_to_maximal(topo, params, y)

@@ -3,14 +3,17 @@
     get_mechanism(name, device=None, **kwargs) -> Mechanism
     initialize(mech, name, **kwargs) -> BodyState
 
-Only the quadruped is ported so far.
+    registered_models() -> sorted names
+
+Ported so far: the pendulum family, cartpole, block and sphere, snake and
+twister, hopper, halfcheetah, walker, ant, quadruped and humanoid.
 """
 
 from importlib import import_module
 
 _REGISTRY = {}
 _INIT_REGISTRY = {}
-_MODULES = ["quadruped"]
+_MODULES = ["pendulum", "cartpole", "block", "snake", "locomotion", "quadruped", "misc"]
 
 
 def register(name):
@@ -48,3 +51,8 @@ def initialize(mech, name, **kwargs):
     if name not in _INIT_REGISTRY:
         return mech.zero_state()
     return _INIT_REGISTRY[name](mech, **kwargs)
+
+
+def registered_models():
+    _load_all()
+    return sorted(_REGISTRY)

@@ -3,8 +3,10 @@
 Parses links and joints with xml.etree, then runs the placement pass: each
 body's frame is its inertial (COM) frame; joint anchors and orientation
 offsets come from the chained URDF joint origins, root → leaves.  With
-``floating=True`` a floating-base joint is prepended.  Visual geometry is
-not parsed: the simulation never reads it.
+``floating=True`` a floating-base joint is prepended.  Each body keeps the
+shape of its ``<visual>`` geometry (``Body.shape``), from which the zoo's
+models read contact radii and lengths; a mesh is kept as its file name
+only, since the simulation never reads a mesh file.
 """
 
 from __future__ import annotations
@@ -64,6 +66,70 @@ def _inertial(link):
 
 def _qconj(q):
     return q * np.array([1.0, -1, -1, -1])
+
+
+def _material_color(vis, root):
+    """RGBA of a visual's material, inline or named at the robot level."""
+    mat = vis.find("material")
+    if mat is None:
+        return None
+    col = mat.find("color")
+    if col is None and mat.get("name"):
+        for m in root.findall("material"):
+            if m.get("name") == mat.get("name"):
+                col = m.find("color")
+                break
+    if col is None:
+        return None
+    rgba = np.fromstring(col.get("rgba", "0.75 0.75 0.75 1"), sep=" ")
+    return [float(v) for v in rgba[:4]]
+
+
+def _shape_of(link, xi, qi, root):
+    """All <visual> geometries of a link, with offsets in the BODY (inertial)
+    frame and material colors.  Returns one shape dict, a
+    {'type': 'combined'} dict, or None."""
+    shapes = []
+    for vis in link.findall("visual"):
+        geom = vis.find("geometry")
+        if geom is None:
+            continue
+        xv, qv = _pose(vis.find("origin"))
+        # the visual pose is in the link frame; the body frame is the inertial frame
+        off_x = nplie.rotate(xv - xi, _qconj(qi))
+        off_q = nplie.qmul(_qconj(qi), qv)
+        d = None
+        for tag in ("box", "cylinder", "sphere", "capsule", "mesh"):
+            g = geom.find(tag)
+            if g is None:
+                continue
+            d = {"type": tag, "attrib": dict(g.attrib)}
+            if tag in ("cylinder", "capsule"):
+                d["radius"] = float(g.get("radius", "0.5"))
+                d["length"] = float(g.get("length", "1"))
+            elif tag == "sphere":
+                d["radius"] = float(g.get("radius", "0.5"))
+            elif tag == "box":
+                d["size"] = np.fromstring(g.get("size", "1 1 1"), sep=" ")
+            elif tag == "mesh":
+                d["path"] = g.get("filename")
+                if g.get("scale"):
+                    d["scale"] = np.fromstring(g.get("scale"), sep=" ")
+            break
+        if d is None:
+            continue
+        if np.linalg.norm(off_x) > 1e-12 or abs(off_q[0]) < 1 - 1e-12:
+            d["position_offset"] = off_x
+            d["orientation_offset"] = off_q
+        color = _material_color(vis, root)
+        if color is not None:
+            d["color"] = color
+        shapes.append(d)
+    if not shapes:
+        return None
+    if len(shapes) == 1:
+        return shapes[0]
+    return {"type": "combined", "shapes": shapes}
 
 
 def parse_urdf_defs(path, floating=False, parse_dampers=True):
@@ -188,8 +254,8 @@ def parse_urdf_defs(path, floating=False, parse_dampers=True):
 
     bodies = []
     for n in body_names:
-        _, _, m, J = inert[n]
-        bodies.append(bd.Body(n, m, J))
+        xi, qi, m, J = inert[n]
+        bodies.append(bd.Body(n, m, J, shape=_shape_of(links[n], xi, qi, root)))
     return bodies, jointdefs
 
 

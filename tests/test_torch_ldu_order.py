@@ -224,7 +224,9 @@ def test_shared_memory_sizes(kkt):
 
 
 def test_schedules_the_kernels_cannot_take_raise(kkt):
-    """A lane over the shared-memory limit, or W > 16, raises."""
+    """A lane over the shared-memory limit, or W > 72, raises; the width is
+    checked where a kernel would launch, so a schedule of any width still
+    builds and takes the plain version on the CPU."""
     sched = kkt[0]
     big = dataclasses.replace(sched, n_slots=200)  # 200 slots of 14x14 in float64
     buf = L.DeviceSchedule(sched, "cpu").buf.numel()
@@ -232,4 +234,7 @@ def test_schedules_the_kernels_cannot_take_raise(kkt):
         L.smem_layout(big, "factorize", torch.float64, buf)
     assert L.smem_layout(big, "factorize", torch.float32, buf)["bytes"] < L.SMEM_LIMIT
     with pytest.raises(ValueError, match="MAXW"):
-        L.DeviceSchedule(dataclasses.replace(sched, width=17), "cpu")
+        L.width_class(73)
+    with pytest.raises(ValueError, match="MAXW"):
+        L.smem_layout(dataclasses.replace(sched, width=73), "factorize", torch.float32, buf)
+    assert L.DeviceSchedule(dataclasses.replace(sched, width=73), "cpu").sched.width == 73

@@ -1,0 +1,14 @@
+"""One float64 step of the port against dojo_tpu's jitted step for the zoo
+models the tier-1 files leave out (see tests/test_torch_zoo_step.py).  Marked
+slow: seven XLA compiles of dojo_tpu's solve, the larger models' minutes
+each on a CPU host."""
+
+import pytest
+from test_torch_zoo_step import check_step
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["npendulum", "sphere", "hopper", "halfcheetah", "walker", "ant",
+                                  "humanoid"])
+def test_zoo_step_matches_reference(name):
+    check_step(name)
