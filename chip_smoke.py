@@ -28,19 +28,27 @@ Phases, each printed as one JSON line with elapsed seconds:
              the plant step; wall ms per part, Newton iterations, rescued
              lanes, okf, costs, best-α counts, sanitized knots, kernel
              launches and peak memory.  It also holds solve and matvec
-             with a shared factorization (1,280 knots × 54 columns) to
-             their plain versions, and the float32 linearize on the card
-             to the plain float64 linearize on the CPU at 4 plant knots.
+             with a shared factorization (1,280 knots × 54 columns: the
+             W ≤ 16 shared-factor solve kernel and the staged matvec) to
+             their plain versions, with times, bounds and the BSR product
+             (mpc_shared_factor); the float32 linearize on the card to the
+             plain float64 linearize on the CPU at 4 of the controller's
+             knots (mpc_linearize); and at up to 12 plant knots (μ = 1e-5,
+             tests/test_torch_linearize_f32_ref.py's lanes stepped on the
+             card) the card's smallest pivots (none at the floor) and
+             linearize errors against the plain float32 CPU's
+             (mpc_linearize_plant).
   zoo      — bench_zoo.py's 12 models (B=64, float32, default timestep,
              u=None), each from its initial state: the model's KKT through
              its width class's kernels (W ≤ 16, 17–32, 33–72) against the
              plain versions, with times and bounds, then ZOO_K timed steps
              with success, Newton iterations, rescued lanes, steps/s and
              the launches of each kernel of the class.
-Then one {"kernels": [...]} line (a row per kernel and width class, with its
-launches in that class on the steps chains, in the control step as
-launches_mpc and in the zoo's timed steps as launches_zoo), the nvidia-smi
-line, and as the last line
+Then one {"kernels": [...]} line (a row per kernel and width class, and the
+rows solve_shared and matvec_shared of k = 54 right-hand sides a
+factorization, with the launches of each row on the steps chains, in the
+control step as launches_mpc and in the zoo's timed steps as launches_zoo),
+the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the exit code is
 non-zero and the last line is not printed.  Without a CUDA device, or
 without the repository beside it, the script fails.
@@ -88,6 +96,13 @@ CLASS_NAME = {"w16": "", "w32": "_w17_32", "w72": "_w33_72"}
 # same comparison with the float32 plain path on the CPU gave at most
 # 2.33e-5 over the 32 knots of a B=8, H=4 rollout; the tolerance is 10x that
 LIN_TOL = 2.5e-4
+# float32 linearize at the plant's own knots (μ = 1e-5), where the port's
+# float32 block LU once floored a pivot that cancelled to 0
+# (tests/test_torch_linearize_f32_ref.py): that test's 32 perturbed lanes
+# with random inputs (numpy seed 0), stepped on the card, and at most
+# PLANT_KNOTS of the converged knots, linearized on the card and, plain, on
+# the CPU in float32 and float64 (~1.5 s of CPU a knot)
+PLANT_LANES, PLANT_KNOTS = 32, 12
 H100 = {"bytes_per_s": 3.35e12, "f32_flops": 67e12, "f64_flops": 34e12}
 
 
@@ -190,6 +205,22 @@ def class_launch_counts():
     return {fn.__name__: dict(fn.class_launches) for fn in (L.factorize, L.solve, L.matvec)}
 
 
+def row_launch_counts():
+    """Launches since the last reset per row of the kernels line: each
+    kernel and width class with one right-hand side a factorization, and as
+    `solve_shared` / `matvec_shared` the W ≤ 16 launches with k > 1 (the
+    shared-factor solve kernel, and the matvec at k columns)."""
+    from dojo_tpu_torch import ldu_cuda as L
+
+    rows = {}
+    for fn in (L.factorize, L.solve, L.matvec):
+        for cls in L.WIDTH_CLASSES:
+            rows[fn.__name__ + CLASS_NAME[cls]] = fn.class_launches[cls] - fn.shared_launches[cls]
+        if fn is not L.factorize:
+            rows[fn.__name__ + "_shared"] = fn.shared_launches["w16"]
+    return rows
+
+
 def model_kkt(mech, state, lanes, dev, init_w=None, seed=0):
     """A model's KKT blocks and right-hand side (node vectors) at `lanes`
     copies of `state`, at the neutral init (`init_w`, a step's, or a new
@@ -257,10 +288,11 @@ def check_kernels(ds, blocks, rhs, what):
     return errors, fact_k, x_k, mag
 
 
-def bsr_matvec(ds, blocks, x):
+def bsr_matvec(ds, blocks, x, k=1):
     """The library yardstick of the matvec: one block-sparse (BSR) product
     over the block-diagonal-over-lanes matrix, blocks sorted by (row, col)
-    node.  Returns (call, its result as node vectors)."""
+    node, times the k vectors of each lane as a dense (B·N·W, k) operand.
+    Returns (call, its result as node vectors (B·k, N, W))."""
     import torch
 
     sched, dev = ds.sched, blocks.device
@@ -273,8 +305,9 @@ def bsr_matvec(ds, blocks, x):
     crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
     bsr = torch.sparse_bsr_tensor(crow, col, blocks[:, perm].reshape(B * S, W, W),
                                   size=(B * N * W, B * N * W))
-    xv = x.reshape(B * N * W, 1)
-    return (lambda: bsr @ xv), (bsr @ xv).reshape(B, N, W)
+    xv = x.reshape(B, k, N * W).transpose(1, 2).reshape(B * N * W, k).contiguous()
+    y = (bsr @ xv).reshape(B, N * W, k).transpose(1, 2).reshape(B * k, N, W)
+    return (lambda: bsr @ xv), y
 
 
 REPLACES = {
@@ -334,8 +367,9 @@ def kernel_rows(ds, blocks, fact, rhs, x, mag, errors, reps=20, plain_reps=3):
 def mpc_phase(H=MPC_H, B=MPC_B, device="cuda"):
     """One trot-MPC control step on the card (bench.py phase "mpc"), then
     the shared-factorization kernels and the float32 linearize against
-    their plain versions.  Returns the kernel launches of the control step,
-per kernel and width class."""
+    their plain versions.  Returns (the kernel launches of the control
+    step per kernels-line row, the kernels-line rows of the shared-factor
+    solve and matvec)."""
     import contextlib
 
     import numpy as np
@@ -401,6 +435,7 @@ per kernel and width class."""
     step_ms = (time.perf_counter() - t) * 1e3
     launches = launch_counts()
     launches_cls = class_launch_counts()
+    launches_rows = row_launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     def plain(v):
@@ -429,6 +464,8 @@ per kernel and width class."""
     for n, c in launches_cls.items():
         check(c["w16"] > 0, f"kernel {n} was not launched in the control step")
         check(sum(c.values()) == c["w16"], "mpc: a kernel of another class than w16 ran")
+    for n in ("solve_shared", "matvec_shared"):  # the linearize's 54 columns a knot
+        check(launches_rows[n] > 0, f"kernel {n} was not launched in the control step")
 
     # ---- shared factorization at the rollout's knots: B·H knots x 54 columns
     sched = build_schedule(topo)
@@ -453,17 +490,32 @@ per kernel and width class."""
     y_p = ldu.matvec(ds.plan, blocks, x_k, C)
     mag = ldu.matvec(ds.plan, blocks.abs(), x_k.abs(), C)
     err_mv = (y_k - y_p).abs().max().item()
+    lib_call, y_lib = bsr_matvec(ds, blocks, x_k, C)
+    err_lib = (y_lib - y_p).abs().max().item()
+    check(bool(((y_lib - y_p).abs() <= 1e-5 * mag + 1e-30).all()),
+          f"BSR yardstick disagrees with the plain shared matvec by {err_lib}")
     need = work(sched, knots, 4, C)
     shared = {}
-    for name, kern, pl in (
-        ("solve", lambda: L.solve(ds, fact, rhs, C), lambda: ldu.solve(ds.plan, fact, rhs, C)),
+    for name, kern, pl, lib in (
+        ("solve", lambda: L.solve(ds, fact, rhs, C), lambda: ldu.solve(ds.plan, fact, rhs, C),
+         None),
         ("matvec", lambda: L.matvec(ds, blocks, x_k, C),
-         lambda: ldu.matvec(ds.plan, blocks, x_k, C)),
+         lambda: ldu.matvec(ds.plan, blocks, x_k, C), lib_call),
     ):
         bound_ms, bound_by = bound(*need[name])
-        shared[name] = dict(ms=time_ms(kern, 5), plain_ms=time_ms(pl, 2), bound_ms=bound_ms,
-                            bound_by=bound_by, bytes=need[name][0], flops=need[name][1])
-    shared["solve"]["max_abs_err"], shared["matvec"]["max_abs_err"] = err_solve, err_mv
+        ms = time_ms(kern, 5)
+        # the cap the launcher set for this shape: the shared-factor kernels
+        # (solve 3 with its edge blocks in 16 x 16 tiles, 4 without; matvec 5)
+        kc, pad = ds.chunk(name + "_shared", f32, C)
+        kid = (3 if pad else 4) if name == "solve" else 5
+        smem = L.library().ldu_kernel_smem(kid, 4, sched.width)
+        shared[name + "_shared"] = dict(
+            name=name + "_shared", route="cuda", source="dojo_tpu_torch/csrc/ldu.cu",
+            replaces=REPLACES[name], launches=0, max_abs_err=err_solve if name == "solve"
+            else err_mv, ms=ms, plain_ms=time_ms(pl, 2), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(lib, 5) if lib is not None else None, smem_bytes=smem,
+            width_class="w16", W=sched.width, B=knots, k=C, bytes=need[name][0],
+            flops=need[name][1], kc=kc, padded_edges=pad)
     emit("mpc_shared_factor", knots=knots, rhs_per_fact=C, lanes=knots * C, solve_scale=scale,
          kernels=shared)
     check(err_solve / scale < 2e-5, f"shared solve: {err_solve} of scale {scale} (2e-5)")
@@ -488,7 +540,57 @@ per kernel and width class."""
     emit("mpc_linearize", scenarios=lanes.tolist(), knots=steps.tolist(), rel_err=err_lin,
          tol=LIN_TOL, A_inf=scale_a)
     check(err_lin < LIN_TOL, f"float32 linearize: {err_lin} of max(1, |A|) (tol {LIN_TOL})")
-    return launches_cls
+
+    # ---- float32 linearize at the plant's knots (μ = 1e-5): the card against
+    # plain float64 on the CPU.  The fault this guards (a pivot cancelled to
+    # exactly 0 and floored) is checked per knot: no smallest pivot at the
+    # floor.  The errors are held as a whole: their median within 10x the
+    # plain float32 CPU median, or LIN_TOL.  A knot's error alone is
+    # rounding noise on a pivot of ~5e-8: at most knots it moves by more
+    # than 10x, and up to ~10^3, when w moves by one ulp
+    # (tests/test_torch_linearize_f32_ref.py), so knots where the card's
+    # exceeds 10x the CPU's are reported, not gated.
+    t = time.perf_counter()
+    rng = np.random.default_rng(0)
+    py = np.repeat(y0.cpu().numpy()[None], PLANT_LANES, 0)
+    py[:, :2] += rng.normal(scale=0.01, size=(PLANT_LANES, 2))
+    py[:, 6:9] += rng.normal(scale=0.02, size=(PLANT_LANES, 3))
+    pu = rng.normal(scale=0.5, size=(PLANT_LANES, topo.input_dim)).astype(np.float32)
+    p_y, p_u = torch.as_tensor(py, device=dev), torch.as_tensor(pu, device=dev)
+    _, p_w, p_mu, p_ok = plant_step(params, p_y, p_u)
+    conv = (p_ok & ((p_mu - 1e-5).abs() < 1e-9)).nonzero().flatten()
+    check(len(conv) >= 8, f"plant knots: {len(conv)} of {PLANT_LANES} lanes converged at μ=1e-5")
+    knot = conv[:PLANT_KNOTS]
+    kargs = [a[knot] for a in (p_y, p_u, p_w, p_mu)]
+    A32, B32 = plant_lin(params, *kargs)
+    kctx = make_context(topo, to_maximal(topo, params, kargs[0]), params, pad_inputs(topo, kargs[1]))
+    kblocks = make_assembler(topo, sched, dev)(kargs[2], kctx, params, kargs[3]).contiguous()
+    min_piv = lambda LU: LU.diagonal(dim1=-2, dim2=-1).abs().flatten(1).amin(1).cpu()
+    piv_card = min_piv(L.factorize(ds, kblocks)[1])
+    piv_cpu = min_piv(ldu.factorize(ldu.LduPlan(sched, "cpu"), kblocks.cpu())[1])
+    A64, B64 = lin64(p64, *(a.cpu().double() for a in kargs))
+    mech32 = models.get_mechanism("quadruped", timestep=MPC_DT, device="cpu").cast(f32)
+    _, lin32, _ = make_rollout_linearize_minimal(mech32.topo, plant_opts, device="cpu")
+    A32c, B32c = lin32(trot_spring_params(mech32, springs=40.0, dampers=4.0),
+                       *(a.cpu() for a in kargs))
+    scale_k = A64.abs().amax(dim=(1, 2)).clamp_min(1.0)
+    rel = lambda A, B: (torch.maximum((A.cpu().double() - A64).abs().amax(dim=(1, 2)),
+                                      (B.cpu().double() - B64).abs().amax(dim=(1, 2)))
+                        / scale_k)
+    e_card, e_cpu = rel(A32, B32), rel(A32c, B32c)
+    med_card, med_cpu = e_card.median().item(), e_cpu.median().item()
+    over = [i for i in range(len(knot)) if e_card[i] > max(10 * e_cpu[i], LIN_TOL)]
+    floored = [i for i in range(len(knot)) if piv_card[i] <= ldu.pivot_floor(f32)]
+    emit("mpc_linearize_plant", lanes=knot.tolist(), converged=len(conv),
+         rel_err=e_card.tolist(), rel_err_cpu_f32=e_cpu.tolist(),
+         min_pivot=piv_card.tolist(), min_pivot_cpu_f32=piv_cpu.tolist(),
+         median=med_card, median_cpu_f32=med_cpu, tol=max(10 * med_cpu, LIN_TOL),
+         knots_over_10x_cpu=over, seconds=time.perf_counter() - t)
+    check(not floored, f"float32 linearize at plant knots {floored}: smallest pivot at the floor")
+    check(med_card <= max(10 * med_cpu, LIN_TOL),
+          f"float32 linearize at plant knots: median error {med_card} of max(1, |A|), "
+          f"plain float32 {med_cpu} (tol 10x, or {LIN_TOL})")
+    return launches_rows, shared
 
 
 def zoo_state(name, device):
@@ -511,8 +613,8 @@ def zoo_phase(K=ZOO_K, B=ZOO_B, names=ZOO_MODELS, device="cuda"):
     """bench_zoo.py's cross-zoo step on the card: per model, the model's
     KKT through its width class's kernels against the plain versions (which
     also warms the kernels up), then K timed steps, checked for finite
-    states and success.  Returns (launches of the timed steps per kernel
-    and width class, summed over the models; kernels-line rows of the
+    states and success.  Returns (launches of the timed steps per
+    kernels-line row, summed over the models; kernels-line rows of the
     w17_32 and w33_72 classes, timed on CLASS_MODEL's KKT)."""
     import torch
 
@@ -522,7 +624,7 @@ def zoo_phase(K=ZOO_K, B=ZOO_B, names=ZOO_MODELS, device="cuda"):
 
     dev = torch.device(device)
     opts = SolverOptions(rtol=1e-6, btol=1e-4, max_iter=30)
-    total = {n: dict.fromkeys(L.WIDTH_CLASSES, 0) for n in ("factorize", "solve", "matvec")}
+    total = dict.fromkeys(row_launch_counts(), 0)
     rows = {}
     for name in names:
         t0 = time.perf_counter()
@@ -559,9 +661,8 @@ def zoo_phase(K=ZOO_K, B=ZOO_B, names=ZOO_MODELS, device="cuda"):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         launches = class_launch_counts()
-        for n in total:
-            for c in total[n]:
-                total[n][c] += launches[n][c]
+        for n, c in row_launch_counts().items():
+            total[n] += c
         finite = all(bool(torch.isfinite(f).all()) for f in (st.x, st.q, st.v, st.w))
         success = torch.stack(oks).float().mean().item()
         emit("zoo", model=name, W=sched.width, width_class=cls, dim=topo.dim, B=B, K=K,
@@ -667,6 +768,7 @@ def main():
     launches = launch_counts()
     warm["launches"] = {k: launches[k] - cold["launches"][k] for k in launches}
     launches_steps = class_launch_counts()
+    rows_steps = row_launch_counts()
     kernel_s = sum(launches[n] * table[n]["ms"] for n in launches) / 1e3
     emit("steps", B=B, K=K, h=0.05, dtype="float32", validate=validate, cold=cold, warm=warm,
          kernel_share=kernel_s / (cold["seconds"] + warm["seconds"]))
@@ -707,14 +809,14 @@ def main():
     check(bool(info64.success[0]) and dx < 1e-5 and dv < 2e-4,
           f"card step disagrees with the float64 reference: dx={dx} dv={dv}")
 
-    launches_mpc = mpc_phase()
+    launches_mpc, shared_rows = mpc_phase()
+    table.update(shared_rows)
     zoo_launches, zoo_rows = zoo_phase()
     table.update(zoo_rows)
     for row in table.values():
-        n, cls = row["name"].split("_")[0], row["width_class"]
-        row["launches"] = launches_steps[n][cls]
-        row["launches_mpc"] = launches_mpc[n][cls]
-        row["launches_zoo"] = zoo_launches[n][cls]
+        row["launches"] = rows_steps[row["name"]]
+        row["launches_mpc"] = launches_mpc[row["name"]]
+        row["launches_zoo"] = zoo_launches[row["name"]]
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

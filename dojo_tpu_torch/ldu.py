@@ -26,12 +26,33 @@ def pivot_floor(dtype) -> float:
     return 1e-12 if dtype == torch.float32 else 1e-30
 
 
+def schur_fma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """c − a·b rounded once, as the fused multiply-add that XLA (dojo_tpu)
+    and nvcc (the kernels) make of it.  In float32 the product is exact in
+    float64 and the difference is rounded to float32 (a second rounding
+    differs from the fused one only where the float64 difference lands on
+    a float32 tie); in float64, which has no wider type here, the product
+    is rounded first.  Rounding the product apart is not a detail in
+    float32: at nearly singular nodes it cancels a pivot to exactly 0 (and
+    the floor) where the fused form leaves rounding noise."""
+    if c.dtype == torch.float32:
+        return (c.double() - a.double() * b.double()).float()
+    return c - a * b
+
+
 def blu_factor(D: torch.Tensor, n: int):
     """Batched in-block pivoted LU with scaled partial pivoting.
 
     D: (..., W, W), invertible leading n×n block, identity on pad dims.
     Returns (LU, PS): LU packs unit-lower L (strict lower triangle) and U;
     PS = P·diag(rowscale), so that PS·D = L·U.
+
+    Rows k and p swap arithmetically, as in dojo_tpu's blu_factor: row k
+    becomes Tk + (Tp − Tk) and row p becomes Tp + (Tk − Tp), in every
+    column.  In float32 these round away from Tp and Tk, and a pivot that
+    cancels to rounding noise keeps that noise instead of landing on exact
+    0 (and the floor); PS rows have one nonzero each, so there the swap is
+    exact.  The Schur update is fused (``schur_fma``).
     """
     W = D.shape[-1]
     rmax = D.abs().amax(dim=-1, keepdim=True)
@@ -44,18 +65,18 @@ def blu_factor(D: torch.Tensor, n: int):
         mag = torch.where((idx >= k) & (idx < n), M[..., :, k].abs(),
                           torch.full_like(M[..., :, k], -float("inf")))
         p = mag.argmax(dim=-1)  # first maximum
-        perm = idx.expand(p.shape + (W,)).clone()
-        perm[..., k] = p
-        perm.scatter_(-1, p.unsqueeze(-1), k)  # swap rows k and p
-        rows = perm.unsqueeze(-1).expand(M.shape)
-        M = M.gather(-2, rows)
-        PS = PS.gather(-2, rows)
+        rows_p = p[..., None, None].expand(*p.shape, 1, W)
+        for T in (M, PS):
+            Tp, Tk = T.gather(-2, rows_p), T[..., k : k + 1, :].clone()
+            T.scatter_(-2, rows_p, Tp + (Tk - Tp))
+            T[..., k : k + 1, :] = Tk + (Tp - Tk)
         a = M[..., k, k]
         a = torch.where(a.abs() > tiny, a,
                         torch.where(a < 0, torch.full_like(a, -tiny), torch.full_like(a, tiny)))
         M[..., k, k] = a
         mult = M[..., k + 1 :, k] / a.unsqueeze(-1)
-        M[..., k + 1 :, k + 1 :] -= mult.unsqueeze(-1) * M[..., k : k + 1, k + 1 :]
+        M[..., k + 1 :, k + 1 :] = schur_fma(M[..., k + 1 :, k + 1 :], mult.unsqueeze(-1),
+                                             M[..., k : k + 1, k + 1 :])
         M[..., k + 1 :, k] = mult
     return M, PS
 

@@ -76,6 +76,9 @@ _ARRAYS = (
     "row_ptr", "row_slot", "slot_b",
 )
 SMEM_LIMIT = 232448  # dynamic shared memory one CTA may opt into on sm_90 (227 KB)
+# the most a CTA may take for two to share an SM (228 KB, 1 KB reserved per CTA)
+SMEM_HALF = 233472 // 2 - 1024
+SHARED_MAXKC = 32  # columns a shared-factor solve CTA takes (csrc/ldu.cu MULTI_MAXKC)
 
 
 class _Sched(ctypes.Structure):
@@ -94,7 +97,8 @@ class _SolveLayout(ctypes.Structure):  # C struct SolveLayout (see smem_layout)
                 for n in ("e", "lu", "rd", "psc", "b", "t", "x", "y", "prow", "si", "bytes")]
 
 
-_LAYOUT_STRUCTS = {"factorize": _FactLayout, "solve": _SolveLayout}
+_LAYOUT_STRUCTS = {"factorize": _FactLayout, "solve": _SolveLayout,
+                   "solve_shared": _SolveLayout}
 
 
 def _nvcc() -> str:
@@ -143,8 +147,8 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         for dt in ("f32", "f64"):
             getattr(lib, f"ldu_factorize_{dt}").argtypes = [p, p, i, p, p, p, p, p]
-            getattr(lib, f"ldu_solve_{dt}").argtypes = [p, p, i, i, p, p, p, p, p, p]
-            getattr(lib, f"ldu_matvec_{dt}").argtypes = [p, i, i, p, p, p, p]
+            getattr(lib, f"ldu_solve_{dt}").argtypes = [p, p, i, i, i, p, p, p, p, p, p]
+            getattr(lib, f"ldu_matvec_{dt}").argtypes = [p, i, i, i, i, i, p, p, p, p]
             for fn in ("factorize", "solve", "matvec"):
                 getattr(lib, f"ldu_{fn}_{dt}").restype = i
         lib.ldu_max_width.restype = i
@@ -269,14 +273,65 @@ def _max_nodes(sched: Schedule) -> int:
     return max(len(l.nodes) for l in sched.levels)
 
 
-def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None) -> dict:
-    """The shared memory of one CTA (one lane) of ``kernel``: the byte
-    offset of each array (csrc/ldu.cu FactLayout / SolveLayout), and the
-    CTA's dynamic shared memory in all (``bytes``).  ``buf_len`` is the
-    length of the schedule's int32 CSR buffer, copied to shared memory.
-    Tiles are padded to ``tile_width`` of the schedule's width class.
-    Raises ValueError for a schedule whose lane does not fit the 227 KB a
-    CTA can have."""
+def _chunk(k: int, fixed: int, per_col: int, budget: int, most: int) -> int:
+    """Columns a CTA takes of k: as many as fit ``budget`` bytes beside
+    ``fixed`` at ``per_col`` a column (at most ``most``), spread evenly over
+    the fewest CTAs; 0 if not one column fits."""
+    kmax = min(most, (budget - fixed) // per_col)
+    if kmax < 1:
+        return 0
+    chunks = -(-k // kmax)
+    return -(-k // chunks)
+
+
+def shared_chunk(sched: Schedule, kernel: str, dtype, k: int,
+                 buf_len: int | None = None) -> tuple[int, bool]:
+    """(columns, pad): the columns a CTA of the W <= 16 shared-factor kernels
+    takes of a factorization's k right-hand sides, for ``kernel``
+    "solve_shared" (at most SHARED_MAXKC, a lane of a warp each, in one CTA
+    an SM; ``pad``: its edge blocks staged as 16 x 16 tiles, where that
+    takes no more CTAs a factorization than W x W blocks) or
+    "matvec_shared" (two CTAs an SM where a lane's blocks leave room for a
+    vector; ``pad`` False).  Raises ValueError where not one column fits
+    beside the factors."""
+    if width_class(sched.width) != "w16":
+        raise ValueError("the shared-factor kernels take W <= 16")
+    if buf_len is None:
+        buf_len = sum(a.size for a in _csr(sched).values())
+    elem = torch.empty((), dtype=dtype).element_size()
+    per_vec = sched.n_nodes * 16 * elem
+    pad = False
+    if kernel == "solve_shared":  # b and t: two node vectors a column
+        fixed = smem_layout(sched, kernel, dtype, buf_len, kc=0)["bytes"]
+        kc = _chunk(k, fixed, 2 * per_vec, SMEM_LIMIT, SHARED_MAXKC)
+        padded = smem_layout(sched, kernel, dtype, buf_len, kc=0, pad=True)["bytes"]
+        kc_pad = _chunk(k, padded, 2 * per_vec, SMEM_LIMIT, SHARED_MAXKC)
+        if kc_pad and -(-k // kc_pad) <= -(-k // max(kc, 1)):
+            kc, pad = kc_pad, True
+    elif kernel == "matvec_shared":
+        fixed = smem_layout(sched, kernel, dtype, buf_len, kc=0)["bytes"]
+        budget = SMEM_HALF if fixed + per_vec <= SMEM_HALF else SMEM_LIMIT
+        kc = _chunk(k, fixed, per_vec, budget, k)
+    else:
+        raise ValueError(f"no shared-factor kernel {kernel!r}")
+    if kc < 1:
+        raise ValueError(f"{kernel}: the factors take {fixed} bytes of shared memory ({dtype}), "
+                         f"no room for a column within the {SMEM_LIMIT}-byte limit of a CTA")
+    return kc, pad
+
+
+def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
+                kc: int = 1, pad: bool = False) -> dict:
+    """The shared memory of one CTA of ``kernel``: the byte offset of each
+    array (csrc/ldu.cu FactLayout / SolveLayout; for the matvecs, the
+    vectors' offset ``x``), and the CTA's dynamic shared memory in all
+    (``bytes``).  "factorize", "solve" and "matvec" (W <= 16) take one lane
+    (and one vector); "solve_shared" and "matvec_shared" (W <= 16) one
+    factorization and ``kc`` of its right-hand sides (the solve's edge
+    blocks as 16 x 16 tiles with ``pad``).  ``buf_len`` is the length of the
+    schedule's int32 CSR buffer, copied to shared memory.  Tiles are padded
+    to ``tile_width`` of the schedule's width class.  Raises ValueError for
+    a CTA over the 227 KB it can have."""
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
@@ -291,8 +346,10 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None)
             "x": _max_pairs(sched) * TILE * elem,  # X tiles of one level's pairs
             "rd": K * TW * elem,  # 1 / diag(U) of those nodes
             "psc": K * TW * elem,  # their PS row scales
-            # the 33..72 class's pivot search: 2 x 4 warp winners and keys
-            "red": (8 * elem + 32) if width_class(sched.width) == "w72" else 0,
+            # the 33..72 class's pivot search (2 x 4 warp winners and keys)
+            # and its two swapped rows
+            "red": (8 * elem + 32 + 2 * sched.width * elem)
+            if width_class(sched.width) == "w72" else 0,
             "prow": K * TW * 4,  # their PS row sources
             "si": buf_len * 4,  # the schedule
         }
@@ -308,6 +365,36 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None)
             "y": NGROUPS * TW * elem,  # PS·b of each group's node
             "prow": N * TW * 4,  # PS row sources
             "si": buf_len * 4,  # the schedule
+        }
+    elif kernel == "solve_shared":
+        if width_class(sched.width) != "w16":
+            raise ValueError("the shared-factor solve takes W <= 16")
+        sizes = {
+            # the edge blocks (slots N..S-1), 16-byte aligned for the tiles after
+            "e": -(-(S - N) * (TILE if pad else WW) * elem // 16) * 16,
+            "lu": N * TILE * elem,  # LU tiles
+            "rd": N * TW * elem,  # 1 / diag(U)
+            "psc": N * TW * elem,  # PS row scales
+            "b": N * TW * kc * elem,  # right-hand sides, column-minor
+            "t": N * TW * kc * elem,  # D^{-1} b of the forward pass, then the solution
+            "x": 0,
+            "y": 0,
+            "prow": N * TW * 4,  # PS row sources
+            "si": buf_len * 4,  # the schedule
+        }
+    elif kernel == "matvec":
+        if width_class(sched.width) != "w16":
+            raise ValueError("the staged matvec takes W <= 16")
+        sizes = {
+            "blocks": -(-S * WW * elem // 16) * 16,  # the lane's blocks
+            "x": N * TW * elem,  # its vector, padded to 16 a node
+        }
+    elif kernel == "matvec_shared":
+        if width_class(sched.width) != "w16":
+            raise ValueError("the shared-factor matvec takes W <= 16")
+        sizes = {
+            "blocks": -(-S * WW * elem // 16) * 16,  # the lane's blocks
+            "x": kc * N * TW * elem,  # the chunk's vectors, padded to 16 a node
         }
     else:
         raise ValueError(f"no shared-memory layout for kernel {kernel!r}")
@@ -340,14 +427,23 @@ class DeviceSchedule:
         )
         self._layouts = {}
 
-    def layout(self, kernel: str, dtype):
-        """``smem_layout`` of this schedule as its C struct, made once per
-        kernel and dtype."""
-        if (kernel, dtype) not in self._layouts:
-            offsets = smem_layout(self.sched, kernel, dtype, self.buf.numel())
-            struct = _LAYOUT_STRUCTS[kernel]
-            self._layouts[kernel, dtype] = struct(*(offsets[n] for n, _ in struct._fields_))
-        return self._layouts[kernel, dtype]
+    def layout(self, kernel: str, dtype, kc: int = 1, pad: bool = False):
+        """``smem_layout`` of this schedule as its C struct (for "matvec":
+        the offsets dict), made once per kernel, dtype, kc and pad."""
+        key = kernel, dtype, kc, pad
+        if key not in self._layouts:
+            offsets = smem_layout(self.sched, kernel, dtype, self.buf.numel(), kc, pad)
+            struct = _LAYOUT_STRUCTS.get(kernel)
+            self._layouts[key] = (struct(*(offsets[n] for n, _ in struct._fields_))
+                                  if struct else offsets)
+        return self._layouts[key]
+
+    def chunk(self, kernel: str, dtype, k: int) -> tuple[int, bool]:
+        """``shared_chunk`` of this schedule, made once per kernel, dtype and k."""
+        key = "chunk", kernel, dtype, k
+        if key not in self._layouts:
+            self._layouts[key] = shared_chunk(self.sched, kernel, dtype, k, self.buf.numel())
+        return self._layouts[key]
 
 
 def _cuda_args(ds: DeviceSchedule, rhs_per_fact=1, **tensors):
@@ -380,9 +476,10 @@ def _cuda_args(ds: DeviceSchedule, rhs_per_fact=1, **tensors):
     return suffix, B, first.device
 
 
-def _launch(wrapper, suffix, ds, device, *args):
+def _launch(wrapper, suffix, ds, device, k, *args):
     """Launch ldu_<name>_<suffix> (the kernel of the schedule's width class)
-    on the device's current stream, and count it on its wrapper."""
+    on the device's current stream, and count it on its wrapper (with k > 1
+    right-hand sides a factorization also in ``shared_launches``)."""
     name = wrapper.__name__
     fn = getattr(library(), f"ldu_{name}_{suffix}")
     with torch.cuda.device(device):
@@ -390,8 +487,11 @@ def _launch(wrapper, suffix, ds, device, *args):
         rc = fn(ctypes.byref(ds.struct), *args, stream)
     if rc != 0:
         raise RuntimeError(f"ldu_{name}_{suffix}: CUDA error {rc}")
+    cls = width_class(ds.sched.width)
     wrapper.launches += 1
-    wrapper.class_launches[width_class(ds.sched.width)] += 1
+    wrapper.class_launches[cls] += 1
+    if k > 1:
+        wrapper.shared_launches[cls] += 1
 
 
 def _plain_or_cuda(t: torch.Tensor) -> bool:
@@ -418,7 +518,8 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
     pair, then each target block reduced by one half-warp in list order.
     Three CTA barriers per level.  17 <= W <= 32: the same with a warp per
     node; 33 <= W <= 72: the CTA on one node at a time, a thread per row,
-    one CTA barrier per pivot."""
+    two CTA barriers per pivot.  Rows swap arithmetically, as in
+    ldu.blu_factor."""
     if not _plain_or_cuda(blocks):
         return ldu.factorize(ds.plan, blocks)
     suffix, B, dev = _cuda_args(ds, blocks=blocks)
@@ -428,7 +529,7 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
     lu = blocks.new_empty(B, N, W, W)
     ps = blocks.new_empty(B, N, W, W)
     if B:
-        _launch(factorize, suffix, ds, dev, ctypes.byref(layout), B,
+        _launch(factorize, suffix, ds, dev, 1, ctypes.byref(layout), B,
                 blocks.data_ptr(), fb.data_ptr(), lu.data_ptr(), ps.data_ptr())
     return fb, lu, ps
 
@@ -453,10 +554,15 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) ->
     if not _plain_or_cuda(rhs):
         return ldu.solve(ds.plan, fact, rhs, rhs_per_fact)
     suffix, B, dev = _cuda_args(ds, rhs_per_fact, blocks=fb, lu=lu, ps=ps, x=rhs)
-    layout = ds.layout("solve", rhs.dtype)
+    k, kc = rhs_per_fact, 0
+    if k > 1 and width_class(ds.sched.width) == "w16":
+        kc, pad = ds.chunk("solve_shared", rhs.dtype, k)
+        layout = ds.layout("solve_shared", rhs.dtype, kc, pad)
+    else:
+        layout = ds.layout("solve", rhs.dtype)
     out = torch.empty_like(rhs)
     if B:
-        _launch(solve, suffix, ds, dev, ctypes.byref(layout), B * rhs_per_fact, rhs_per_fact,
+        _launch(solve, suffix, ds, dev, k, ctypes.byref(layout), B, k, kc,
                 fb.data_ptr(), lu.data_ptr(), ps.data_ptr(), rhs.data_ptr(), out.data_ptr())
     return out
 
@@ -474,9 +580,14 @@ def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor,
     if not _plain_or_cuda(x):
         return ldu.matvec(ds.plan, blocks, x, rhs_per_fact)
     suffix, B, dev = _cuda_args(ds, rhs_per_fact, blocks=blocks, x=x)
+    k, kc, x_off, smem = rhs_per_fact, 0, 0, 0
+    if width_class(ds.sched.width) == "w16":
+        kc, pad = ds.chunk("matvec_shared", x.dtype, k) if k > 1 else (1, False)
+        layout = ds.layout("matvec_shared" if k > 1 else "matvec", x.dtype, kc, pad)
+        x_off, smem = layout["x"], layout["bytes"]
     out = torch.empty_like(x)
     if B:
-        _launch(matvec, suffix, ds, dev, B * rhs_per_fact, rhs_per_fact,
+        _launch(matvec, suffix, ds, dev, k, B, k, kc, x_off, smem,
                 blocks.data_ptr(), x.data_ptr(), out.data_ptr())
     return out
 
@@ -497,6 +608,7 @@ def reset_launches():
     for fn in (factorize, solve, matvec):
         fn.launches = 0
         fn.class_launches = dict.fromkeys(WIDTH_CLASSES, 0)
+        fn.shared_launches = dict.fromkeys(WIDTH_CLASSES, 0)
 
 
 reset_launches()

@@ -109,7 +109,7 @@ def test_factorize_solve_odd_batch_on_cuda(lanes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 54])
+@pytest.mark.parametrize("k", [1, 3, 54])
 def test_shared_factor_solve_matvec_on_cuda(k):
     """solve and matvec with rhs_per_fact=k (k right-hand sides read each
     lane's factors in place) against their plain versions on the card,
@@ -136,6 +136,39 @@ def test_shared_factor_solve_matvec_on_cuda(k):
         assert bool(((y - ldu.matvec(ds.plan, blocks, x, k)).abs() <= 1e-5 * mag + 1e-30).all())
         with pytest.raises(ValueError):
             L.solve(ds, fact, b[:-1].contiguous(), k) if k > 1 else L.matvec(ds, blocks, b, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 54])
+def test_shared_factor_kernels_match_plain_on_cuda(k):
+    """The W <= 16 shared-factor solve (one CTA per factorization and chunk
+    of its k columns, for k > 1) and the staged matvec (every k) against
+    their plain versions on the same factors, at an odd B, float32 and
+    float64: the solve without refinement to 2e-5 / 1e-10 of its scale, the
+    matvec within 1e-5·Σ|E||x|; the launches with k > 1 are counted in
+    ``shared_launches`` (float64 at k=54 takes 8 chunks of 7 columns, the
+    last shorter)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    lanes = 5
+    for dtype, tol in ((torch.float32, 2e-5), (torch.float64, 1e-10)):
+        sched, blocks, _ = quadruped_kkt(dtype, "cuda", lanes)
+        ds = L.DeviceSchedule(sched, "cuda")
+        fact = L.factorize(ds, blocks)
+        noise = np.random.default_rng(k).standard_normal((lanes * k, 356))
+        b = L.flat_to_nodes(ds.plan, torch.as_tensor(noise, dtype=dtype, device="cuda"))
+        b = b.contiguous()
+        L.reset_launches()
+        x = L.solve(ds, fact, b, k)
+        y = L.matvec(ds, blocks, b, k)
+        torch.cuda.synchronize()
+        assert (L.solve.launches, L.matvec.launches) == (1, 1)
+        shared = int(k > 1)
+        assert (L.solve.shared_launches["w16"], L.matvec.shared_launches["w16"]) == (shared, shared)
+        x_ref = ldu.solve(ds.plan, fact, b, k)
+        assert float((x - x_ref).abs().max()) / float(x_ref.abs().max()) < tol
+        mag = ldu.matvec(ds.plan, blocks.abs(), b.abs(), k)
+        assert bool(((y - ldu.matvec(ds.plan, blocks, b, k)).abs() <= 1e-5 * mag + 1e-30).all())
 
 
 def _check_class(name, dtype, lanes, k=1):

@@ -106,11 +106,22 @@ def test_solve_pull_lists_in_list_order(kkt):
     assert min(a["fwd_ai"].min(), a["bwd_ia"].min()) >= sched.n_nodes  # edge slots only
 
 
+def _swap_rows(m, lk, pl):
+    """ldu.blu_factor's arithmetic swap on rows kept in place: the pivot row
+    pl takes row k's place as Tk + (Tp − Tk), the row at position k (lk)
+    the pivot's as Tp + (Tk − Tp)."""
+    tk, tp = m[lk].copy(), m[pl].copy()
+    m[pl] = tk + (tp - tk)
+    m[lk] = tp + (tk - tp)
+
+
+
 def _lazy_pivot_lu(D, n):
     """The factorize kernel's block LU (csrc/ldu.cu block_lu) in numpy:
-    rows stay in place and `pos` records where each would be after
-    ldu.blu_factor's row swaps; the pivot is the largest |m[k]| over
-    positions k..n-1, on a tie the lowest position.  Returns (LU, PS)."""
+    rows stay in place and `pos` records where each is after ldu.blu_factor's
+    row swaps, which change the two swapped rows' values arithmetically; the
+    pivot is the largest |m[k]| over positions k..n-1, on a tie the lowest
+    position.  Returns (LU, PS)."""
     W = D.shape[0]
     m = D.copy()
     rmax = np.abs(m).max(axis=1)
@@ -121,6 +132,7 @@ def _lazy_pivot_lu(D, n):
         cand = [(abs(m[r, k]), -pos[r], r) for r in range(W) if k <= pos[r] < n]
         pl = max(cand)[2]  # largest value, then lowest position
         at_k = np.flatnonzero(pos == k)[0]
+        _swap_rows(m, at_k, pl)
         pos[at_k], pos[pl] = pos[pl], k
         a = m[pl, k]
         a = a if abs(a) > 1e-30 else (-1e-30 if a < 0 else 1e-30)
@@ -139,12 +151,14 @@ def _lazy_pivot_lu(D, n):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_lazy_pivot_lu_matches_blu_factor(seed):
     """Pivot ties included: entries are drawn from a few values, so rows
-    scale to exact ±1s and pivot candidates tie."""
+    scale to exact ±1s and pivot candidates tie.  Half the blocks take
+    random scales instead, so that the arithmetic swaps round."""
     rng = np.random.default_rng(seed)
     n, W = 11, 14
     D = np.tile(np.eye(W), (6, 1, 1))
     D[:, :n, :n] = rng.choice([-2.0, -1.0, 0.0, 0.5, 1.0, 2.0], size=(6, n, n))
     D[:, :n, :n] += 4 * np.eye(n) * rng.integers(0, 2, size=(6, 1, 1))
+    D[3:, :n, :n] *= rng.uniform(0.5, 2.0, size=(3, n, n))
     lu, ps = ldu.blu_factor(torch.as_tensor(D), n)
     for b in range(6):
         LU, PS = _lazy_pivot_lu(D[b], n)
@@ -221,6 +235,42 @@ def test_shared_memory_sizes(kkt):
             assert [layout[n] for n in fields] == sorted(layout.values())
     # two float32 lanes share an SM (228 KB, 1 KB reserved per CTA)
     assert 2 * (max(want[torch.float32]) + 1024) <= 228 * 1024
+
+
+# the quadruped's shared-factor CTAs: {k: ((solve columns, edge blocks in
+# tiles, bytes), (matvec vectors, blocks in tiles, bytes))} of a CTA
+SHARED = {
+    torch.float32: {3: ((3, True, 121312), (3, False, 83392)),
+                    54: ((27, True, 201184), (18, False, 108352))},
+    torch.float64: {3: ((3, False, 201504), (3, False, 166784)),
+                    54: ((7, False, 228128), (18, False, 216704))},
+}
+
+
+@pytest.mark.parametrize("dtype", list(SHARED), ids=["f32", "f64"])
+def test_shared_factor_chunks(kkt, dtype):
+    """The columns a CTA of the W <= 16 shared-factor solve takes of a
+    factorization's k (up to 32, in one CTA an SM; spread evenly; its edge
+    blocks staged as 16 x 16 tiles unless that takes more CTAs) and the
+    vectors a CTA of the matvec takes (two CTAs an SM in float32, whose
+    lane's blocks take 78,400 bytes), with their shared memory, the tiles and
+    vectors 16-byte aligned; and the one-vector matvec's CTA."""
+    sched = kkt[0]
+    for k, ((kc, pad, nbytes), (kv, vpad, vbytes)) in SHARED[dtype].items():
+        assert L.shared_chunk(sched, "solve_shared", dtype, k) == (kc, pad)
+        layout = L.smem_layout(sched, "solve_shared", dtype, kc=kc, pad=pad)
+        assert layout["bytes"] == nbytes <= L.SMEM_LIMIT and layout["lu"] % 16 == 0
+        fields = [n for n, _ in L._SolveLayout._fields_]
+        assert list(layout) == fields and layout["x"] == layout["y"] == layout["prow"]
+        assert L.shared_chunk(sched, "matvec_shared", dtype, k) == (kv, vpad)
+        mv = L.smem_layout(sched, "matvec_shared", dtype, kc=kv, pad=vpad)
+        assert mv["bytes"] == vbytes <= L.SMEM_LIMIT and mv["x"] % 16 == 0
+    one = L.smem_layout(sched, "matvec", dtype)
+    assert one["x"] % 16 == 0 and one["bytes"] == {torch.float32: 80064,
+                                                     torch.float64: 160128}[dtype]
+    assert L.smem_layout(sched, "matvec", torch.float32)["bytes"] <= L.SMEM_HALF
+    with pytest.raises(ValueError, match="W <= 16"):
+        L.shared_chunk(dataclasses.replace(sched, width=22), "solve_shared", dtype, 54)
 
 
 def test_schedules_the_kernels_cannot_take_raise(kkt):
