@@ -8,8 +8,13 @@ Phases, each printed as one JSON line with elapsed seconds:
   build    — nvcc build of dojo_tpu_torch/csrc/ldu.cu (first use);
   kernels  — the three block-LDU kernels against their plain PyTorch
              versions on the quadruped KKT at B=256, float32 (factorize
-             also on L·U = PS·D), with times at B=256 and for one lane,
-             and the dynamic shared memory each kernel was launched with;
+             also on L·U = PS·D, and each block LU bitwise against the
+             plain one's on the blocks the kernel factored), with times at
+             B=256 and for one lane, and the dynamic shared memory each
+             kernel was launched with;
+  lu_swap  — each width class's factorize on blocks whose pivots cancel
+             to rounding noise only through the arithmetic row swap
+             (swap_blocks), bitwise against the plain block LU;
   steps    — the quadruped contact step (h=0.05, B=256, float32,
              rtol=1e-6, btol=1e-4, max_iter=30): one validation step, then
              a cold and a warm chain as bench.py runs them (one untimed
@@ -29,8 +34,9 @@ Phases, each printed as one JSON line with elapsed seconds:
              lanes, okf, costs, best-α counts, sanitized knots, kernel
              launches and peak memory.  It also holds solve and matvec
              with a shared factorization (1,280 knots × 54 columns: the
-             W ≤ 16 shared-factor solve kernel and the staged matvec) to
-             their plain versions, with times, bounds and the BSR product
+             W ≤ 16 shared-factor solve kernel, alone and refined once, and
+             the staged matvec) to their plain versions, with times, bounds
+             and the BSR product
              (mpc_shared_factor); the float32 linearize on the card to the
              plain float64 linearize on the CPU at 4 of the controller's
              knots (mpc_linearize); and at up to 12 plant knots (μ = 1e-5,
@@ -103,6 +109,7 @@ LIN_TOL = 2.5e-4
 # PLANT_KNOTS of the converged knots, linearized on the card and, plain, on
 # the CPU in float32 and float64 (~1.5 s of CPU a knot)
 PLANT_LANES, PLANT_KNOTS = 32, 12
+PLANT_OPTS = dict(rtol=1e-6, btol=1e-4, max_iter=30)
 H100 = {"bytes_per_s": 3.35e12, "f32_flops": 67e12, "f64_flops": 34e12}
 
 
@@ -186,6 +193,91 @@ def lu_identity_err(fb, lu, ps, n_nodes):
     return (num / pd.abs().amax(dim=(-1, -2))).max().item()
 
 
+def swap_blocks(kind, seed, count=64, W=14, n=12):
+    """Diagonal blocks (count, W, W), float32 numpy, from a seed: n real
+    rows of widely spread scales (pad rows identity).  "dup": row j is a
+    power of two times row i, so that after row scaling the two are equal
+    and their pivot cancels exactly unless a row swap has rounded one of
+    them; "prop": row j a random multiple of row i; "comb": row l a
+    combination of rows i and j (pivots that cancel to rounding noise);
+    "random": none of these."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    D = np.tile(np.eye(W, dtype=np.float32), (count, 1, 1))
+    R = rng.standard_normal((count, n, n)) * np.exp(rng.normal(scale=2, size=(count, n, 1)))
+    for b in range(count):
+        i, j, l = rng.choice(n, 3, replace=False)
+        if kind == "dup":
+            R[b, j] = R[b, i] * 2.0 ** rng.integers(-2, 3)
+        elif kind == "prop":
+            R[b, j] = R[b, i] * rng.uniform(-3, 3)
+        elif kind == "comb":
+            R[b, l] = R[b, i] * rng.uniform(-3, 3) + R[b, j] * rng.uniform(-3, 3)
+    D[:, :n, :n] = R.astype(np.float32)
+    return D
+
+
+def isolated_blocks(sched, kind, seed, lanes, device):
+    """A schedule's blocks (lanes, S, W, W), float32, with each node's
+    diagonal block from swap_blocks at its level's real width (the seed
+    plus the node) and every edge block zero, so that each node's block is
+    factored as made (its Schur updates subtract exact zeros)."""
+    import numpy as np
+    import torch
+
+    W = sched.width
+    blocks = np.zeros((lanes, sched.n_slots, W, W), dtype=np.float32)
+    for lv in sched.levels:
+        for nd in lv.nodes:
+            blocks[:, nd] = swap_blocks(kind, seed + int(nd), lanes, W, int(lv.real_w))
+    return torch.as_tensor(blocks, device=device)
+
+
+def ulp_gap(a, b):
+    """The most units in the last place between two float32 tensors'
+    entries (their bit patterns as ordered integers)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def lu_vs_plain(sched, fb, lu, ps):
+    """A float32 factorization's block LUs against the plain block LU,
+    ldu.blu_factor on the CPU, of the diagonal blocks as the factorization
+    factored them (fb's slots 0..N-1), level by level at its real width:
+    the arithmetic row swap and the fused Schur update of dojo_tpu's
+    blu_factor.  Returns a dict: blocks; ``differ``, the blocks whose LU or
+    PS differ from the plain one's in any bit; ``ulps``, the most ulps an
+    LU entry lies from the plain one's; ``floored``, the blocks whose
+    smallest pivot sits at the floor where the plain one's does not;
+    ``at_floor``, the blocks whose smallest pivot sits at the floor; and
+    ``min_pivot``, the smallest |U_kk|."""
+    import torch
+
+    from dojo_tpu_torch import ldu
+
+    fb, lu, ps = (t.cpu() for t in (fb, lu, ps))
+    floor = ldu.pivot_floor(fb.dtype)
+    out = dict(blocks=0, differ=0, ulps=0, floored=0, at_floor=0, min_pivot=float("inf"))
+    for lv in sched.levels:
+        nodes, n = torch.as_tensor(lv.nodes), int(lv.real_w)
+        plu, pps = ldu.blu_factor(fb[:, nodes], n)
+        klu, kps = lu[:, nodes], ps[:, nodes]
+        piv = lambda t: t.diagonal(dim1=-2, dim2=-1)[..., :n].abs().amin(-1)
+        out["blocks"] += klu.shape[0] * klu.shape[1]
+        out["differ"] += int(((klu != plu) | (kps != pps)).flatten(2).any(-1).sum())
+        out["ulps"] = max(out["ulps"], ulp_gap(klu, plu))
+        out["floored"] += int(((piv(klu) <= floor) & (piv(plu) > floor)).sum())
+        out["at_floor"] += int((piv(klu) <= floor).sum())
+        out["min_pivot"] = min(out["min_pivot"], piv(klu).min().item())
+    return out
+
+
 def bound(nbytes, flops):
     t_b, t_f = nbytes / H100["bytes_per_s"], flops / H100["f32_flops"]
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
@@ -254,7 +346,9 @@ def model_kkt(mech, state, lanes, dev, init_w=None, seed=0):
 def check_kernels(ds, blocks, rhs, what):
     """The three kernels against their plain versions on one KKT, with the
     test_pallas_ldu.py tolerances: factored blocks to 5e-3, L·U = PS·D to
-    1e-4 of |PS·D|, solve + one refinement sweep to 2e-5 of its scale with
+    1e-4 of |PS·D|, each block LU bitwise equal to the plain one's on the
+    blocks the kernel factored (lu_vs_plain: the arithmetic row swap and
+    the fused Schur update), solve + one refinement sweep to 2e-5 of its scale with
     a relative residual under 1e-4, matvec to 1e-5·Σ|E||x| (the rounding of
     W float32 products and the slot sum).  Returns (errors, kernel
     factors, kernel solution, |Σ|E||x| per entry)."""
@@ -268,6 +362,10 @@ def check_kernels(ds, blocks, rhs, what):
     # tie to rounding; the contract on them is L·U = PS·D for every node
     err_lu = lu_identity_err(*fact_k, ds.sched.n_nodes)
     check(err_lu < 1e-4, f"{what} factorize: L·U − PS·D is {err_lu} of |PS·D| (1e-4)")
+    lu_plain = lu_vs_plain(ds.sched, *fact_k)
+    check(lu_plain["differ"] == 0, f"{what} factorize: {lu_plain['differ']} of "
+          f"{lu_plain['blocks']} block LUs differ from the plain one's, by up to "
+          f"{lu_plain['ulps']} ulps")
     x_k = L.solve_refine(ds, blocks, fact_k, rhs, 1)
     x_p = ldu.solve(ds.plan, fact_p, rhs)
     x_p = x_p + ldu.solve(ds.plan, fact_p, rhs - ldu.matvec(ds.plan, blocks, x_p))
@@ -284,7 +382,8 @@ def check_kernels(ds, blocks, rhs, what):
     check(bool(((y_k - y_p).abs() <= 1e-5 * mag + 1e-30).all()),
           f"{what} matvec: max error {err_mv} exceeds 1e-5·Σ|E||x|")
     errors = {"factorize": err_fact, "solve": err_solve, "matvec": err_mv,
-              "lu_identity": err_lu, "relres": relres, "solve_scale": scale}
+              "lu_identity": err_lu, "relres": relres, "solve_scale": scale,
+              "lu_blocks": lu_plain["blocks"]}
     return errors, fact_k, x_k, mag
 
 
@@ -364,6 +463,52 @@ def kernel_rows(ds, blocks, fact, rhs, x, mag, errors, reps=20, plain_reps=3):
     return rows
 
 
+def lu_swap_phase(lanes=16, kinds=("random", "dup", "comb"), device="cuda"):
+    """Each width class's factorize kernel (on CLASS_MODEL's schedule) on
+    swap_blocks, each node's block factored as made, against the plain
+    block LU: every LU and PS bitwise equal, and no smallest pivot at the
+    floor where the plain one's is not (the dup blocks' pivots cancel to
+    exactly 0 without the arithmetic swap)."""
+    import torch
+
+    from dojo_tpu_torch import ldu_cuda as L, models
+    from dojo_tpu_torch.graph import build_schedule
+
+    out = {}
+    for cls, name in CLASS_MODEL.items():
+        kw = {"timestep": MPC_DT} if name == "quadruped" else {}
+        sched = build_schedule(models.get_mechanism(name, device="cpu", **kw).topo)
+        ds = L.DeviceSchedule(sched, device)
+        for kind in kinds:
+            res = lu_vs_plain(sched, *L.factorize(ds, isolated_blocks(sched, kind, 0, lanes,
+                                                                      device)))
+            out[f"{cls}_{kind}"] = res
+            check(res["differ"] == 0 and res["floored"] == 0,
+                  f"{name} factorize on {kind} blocks: {res} (bitwise, none floored)")
+    torch.cuda.synchronize()
+    return out
+
+
+def plant_knots(topo, params, plant_step, y0, most=PLANT_KNOTS):
+    """tests/test_torch_linearize_f32_ref.py's knots: PLANT_LANES perturbed
+    standing lanes (minimal state y0) with random inputs (numpy seed 0),
+    stepped by plant_step (the plant's options) on y0's device.  Returns
+    (the lanes that converged with μ at 1e-5, [y, u, w, μ] at the first
+    `most` of them)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    py = np.repeat(y0.cpu().numpy()[None], PLANT_LANES, 0)
+    py[:, :2] += rng.normal(scale=0.01, size=(PLANT_LANES, 2))
+    py[:, 6:9] += rng.normal(scale=0.02, size=(PLANT_LANES, 3))
+    pu = rng.normal(scale=0.5, size=(PLANT_LANES, topo.input_dim)).astype(np.float32)
+    p_y, p_u = torch.as_tensor(py, device=y0.device), torch.as_tensor(pu, device=y0.device)
+    _, p_w, p_mu, p_ok = plant_step(params, p_y, p_u)
+    conv = (p_ok & ((p_mu - 1e-5).abs() < 1e-9)).nonzero().flatten()
+    return conv, [a[conv[:most]] for a in (p_y, p_u, p_w, p_mu)]
+
+
 def mpc_phase(H=MPC_H, B=MPC_B, device="cuda"):
     """One trot-MPC control step on the card (bench.py phase "mpc"), then
     the shared-factorization kernels and the float32 linearize against
@@ -403,7 +548,7 @@ def mpc_phase(H=MPC_H, B=MPC_B, device="cuda"):
     y0 = to_minimal(topo, mech.params, tensor_map(lambda a: a[None], s0))[0]
     ny = topo.minimal_dim
     rt_opts = SolverOptions(rtol=1e-4, btol=1e-3, max_iter=16, rescue=True)
-    plant_opts = SolverOptions(rtol=1e-6, btol=1e-4, max_iter=30)
+    plant_opts = SolverOptions(**PLANT_OPTS)
     mpc, ref_fn, _ = make_trot_rt(mech, horizon=H, opts=rt_opts, dt=MPC_DT, alphas=ALPHAS,
                                   iterations=1, device=dev)
     gains = trot_gains(mech, joint_w=1.0, reg=10.0, du_max=1e9, kff=0.0, dtype=f32)
@@ -481,9 +626,41 @@ def mpc_phase(H=MPC_H, B=MPC_B, device="cuda"):
     gen = torch.Generator(device="cpu").manual_seed(1)
     flat_rhs = torch.randn((knots * C, topo.dim), generator=gen, dtype=f32).to(dev)
     rhs = L.flat_to_nodes(ds.plan, flat_rhs).contiguous()
+    # the shared-factor solve alone (unrefined) against the plain float32
+    # solve, and against the plain float64 solve on the same factors for
+    # the float32 solves' own error.  At these knots a float32 solve errs
+    # by ~1e-3 of a column's scale (median; up to ~0.1) against float64,
+    # and the kernel and the plain solve round differently (the kernel's
+    # FMAs), so they differ by as much: the kernel's per-column errors are
+    # held to the plain float32 solve's at the 50th, 90th and 99th
+    # percentile and the largest, within 2x.  On the quadruped's KKT at
+    # μ = 1e-3 at the same shape, where a float32 solve errs by ~3e-5 of a
+    # column's scale, the kernel is held to the plain solve directly, to
+    # 2e-5 of scale, as tests/test_torch_cuda.py does at B=5.
+    x_k0 = L.solve(ds, fact, rhs, C)
+    x_p0 = ldu.solve(ds.plan, fact, rhs, C)
+    err_solve0 = (x_k0 - x_p0).abs().max().item()
+    x_64 = ldu.solve(ds.plan, [f.double() for f in fact], rhs.double(), C)
+    col_scale = x_64.abs().flatten(1).amax(1)
+    pct = torch.tensor([0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=dev)
+    col_err = lambda x: ((x.double() - x_64).abs().flatten(1).amax(1) / col_scale).quantile(pct)
+    q_kernel, q_plain = col_err(x_k0).tolist(), col_err(x_p0).tolist()
+    del x_64, x_k0
+    _, _, kkt, _ = model_kkt(mech, models.initialize(mech, "quadruped"), knots, dev)
+    kkt_fact = L.factorize(ds, kkt)
+    x_kkt = ldu.solve(ds.plan, kkt_fact, rhs, C)
+    scale_kkt = x_kkt.abs().max().item()
+    err_kkt = (L.solve(ds, kkt_fact, rhs, C) - x_kkt).abs().max().item()
+    del kkt, kkt_fact, x_kkt
+    emit("mpc_shared_solve", vs_plain=err_solve0, percentiles=pct.tolist(),
+         col_err_kernel=q_kernel, col_err_plain=q_plain, kkt_vs_plain=err_kkt,
+         kkt_scale=scale_kkt)
+    check(all(a <= 2 * b for a, b in zip(q_kernel, q_plain)),
+          f"shared solve: per-column errors {q_kernel} over 2x the plain float32 {q_plain}")
+    check(err_kkt / scale_kkt < 2e-5,
+          f"shared solve on the KKT at μ=1e-3: {err_kkt} of scale {scale_kkt} (2e-5)")
     x_k = L.solve_refine(ds, blocks, fact, rhs, 1, rhs_per_fact=C)
-    x_p = ldu.solve(ds.plan, fact, rhs, C)
-    x_p = x_p + ldu.solve(ds.plan, fact, rhs - ldu.matvec(ds.plan, blocks, x_p, C), C)
+    x_p = x_p0 + ldu.solve(ds.plan, fact, rhs - ldu.matvec(ds.plan, blocks, x_p0, C), C)
     scale = x_p.abs().max().item()
     err_solve = (x_k - x_p).abs().max().item()
     y_k = L.matvec(ds, blocks, x_k, C)
@@ -504,21 +681,21 @@ def mpc_phase(H=MPC_H, B=MPC_B, device="cuda"):
     ):
         bound_ms, bound_by = bound(*need[name])
         ms = time_ms(kern, 5)
-        # the cap the launcher set for this shape: the shared-factor kernels
-        # (solve 3 with its edge blocks in 16 x 16 tiles, 4 without; matvec 5)
-        kc, pad = ds.chunk(name + "_shared", f32, C)
-        kid = (3 if pad else 4) if name == "solve" else 5
-        smem = L.library().ldu_kernel_smem(kid, 4, sched.width)
+        # the cap the launcher set for this shape (kernel 3: the shared-factor
+        # solve; 4: the matvec at k > 1)
+        kc = ds.chunk("solve_shared" if name == "solve" else "matvec", f32, C)
+        smem = L.library().ldu_kernel_smem(3 if name == "solve" else 4, 4, sched.width)
         shared[name + "_shared"] = dict(
             name=name + "_shared", route="cuda", source="dojo_tpu_torch/csrc/ldu.cu",
-            replaces=REPLACES[name], launches=0, max_abs_err=err_solve if name == "solve"
+            replaces=REPLACES[name], launches=0, max_abs_err=err_solve0 if name == "solve"
             else err_mv, ms=ms, plain_ms=time_ms(pl, 2), bound_ms=bound_ms, bound_by=bound_by,
             library_ms=time_ms(lib, 5) if lib is not None else None, smem_bytes=smem,
             width_class="w16", W=sched.width, B=knots, k=C, bytes=need[name][0],
-            flops=need[name][1], kc=kc, padded_edges=pad)
+            flops=need[name][1], kc=kc)
     emit("mpc_shared_factor", knots=knots, rhs_per_fact=C, lanes=knots * C, solve_scale=scale,
-         kernels=shared)
-    check(err_solve / scale < 2e-5, f"shared solve: {err_solve} of scale {scale} (2e-5)")
+         solve_refined_err=err_solve, kernels=shared)
+    check(err_solve / scale < 2e-5,
+          f"shared solve, refined once: {err_solve} of scale {scale} (2e-5)")
     check(bool(((y_k - y_p).abs() <= 1e-5 * mag + 1e-30).all()),
           f"shared matvec: max error {err_mv} exceeds 1e-5·Σ|E||x|")
 
@@ -551,17 +728,9 @@ def mpc_phase(H=MPC_H, B=MPC_B, device="cuda"):
     # (tests/test_torch_linearize_f32_ref.py), so knots where the card's
     # exceeds 10x the CPU's are reported, not gated.
     t = time.perf_counter()
-    rng = np.random.default_rng(0)
-    py = np.repeat(y0.cpu().numpy()[None], PLANT_LANES, 0)
-    py[:, :2] += rng.normal(scale=0.01, size=(PLANT_LANES, 2))
-    py[:, 6:9] += rng.normal(scale=0.02, size=(PLANT_LANES, 3))
-    pu = rng.normal(scale=0.5, size=(PLANT_LANES, topo.input_dim)).astype(np.float32)
-    p_y, p_u = torch.as_tensor(py, device=dev), torch.as_tensor(pu, device=dev)
-    _, p_w, p_mu, p_ok = plant_step(params, p_y, p_u)
-    conv = (p_ok & ((p_mu - 1e-5).abs() < 1e-9)).nonzero().flatten()
+    conv, kargs = plant_knots(topo, params, plant_step, y0, PLANT_KNOTS)
     check(len(conv) >= 8, f"plant knots: {len(conv)} of {PLANT_LANES} lanes converged at μ=1e-5")
     knot = conv[:PLANT_KNOTS]
-    kargs = [a[knot] for a in (p_y, p_u, p_w, p_mu)]
     A32, B32 = plant_lin(params, *kargs)
     kctx = make_context(topo, to_maximal(topo, params, kargs[0]), params, pad_inputs(topo, kargs[1]))
     kblocks = make_assembler(topo, sched, dev)(kargs[2], kctx, params, kargs[3]).contiguous()
@@ -719,6 +888,7 @@ def main():
     emit("kernels", model="quadruped", B=B, dtype="float32", relres=errors["relres"],
          solve_scale=errors["solve_scale"], lu_identity=errors["lu_identity"],
          kernels=list(table.values()))
+    emit("lu_swap", lanes=16, blocks=lu_swap_phase())
     step = make_step(topo, SolverOptions(rtol=1e-6, btol=1e-4, max_iter=30))
     bstate = tensor_map(lambda a: a.expand(B, *a.shape).contiguous(), state)
     u = torch.zeros(B, topo.nj, 6, dtype=f32, device=dev)

@@ -285,31 +285,23 @@ def _chunk(k: int, fixed: int, per_col: int, budget: int, most: int) -> int:
 
 
 def shared_chunk(sched: Schedule, kernel: str, dtype, k: int,
-                 buf_len: int | None = None) -> tuple[int, bool]:
-    """(columns, pad): the columns a CTA of the W <= 16 shared-factor kernels
-    takes of a factorization's k right-hand sides, for ``kernel``
-    "solve_shared" (at most SHARED_MAXKC, a lane of a warp each, in one CTA
-    an SM; ``pad``: its edge blocks staged as 16 x 16 tiles, where that
-    takes no more CTAs a factorization than W x W blocks) or
-    "matvec_shared" (two CTAs an SM where a lane's blocks leave room for a
-    vector; ``pad`` False).  Raises ValueError where not one column fits
-    beside the factors."""
+                 buf_len: int | None = None) -> int:
+    """The columns a CTA of the W <= 16 kernels that share a lane's factors
+    or blocks among its k right-hand sides takes of them: for ``kernel``
+    "solve_shared" at most SHARED_MAXKC (a lane of a warp each, in one CTA
+    an SM), for "matvec" as many as fit two CTAs an SM where a lane's
+    blocks leave room for a vector, else one.  Raises ValueError where not
+    one column fits beside the factors."""
     if width_class(sched.width) != "w16":
         raise ValueError("the shared-factor kernels take W <= 16")
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
     per_vec = sched.n_nodes * 16 * elem
-    pad = False
+    fixed = smem_layout(sched, kernel, dtype, buf_len, kc=0)["bytes"]
     if kernel == "solve_shared":  # b and t: two node vectors a column
-        fixed = smem_layout(sched, kernel, dtype, buf_len, kc=0)["bytes"]
         kc = _chunk(k, fixed, 2 * per_vec, SMEM_LIMIT, SHARED_MAXKC)
-        padded = smem_layout(sched, kernel, dtype, buf_len, kc=0, pad=True)["bytes"]
-        kc_pad = _chunk(k, padded, 2 * per_vec, SMEM_LIMIT, SHARED_MAXKC)
-        if kc_pad and -(-k // kc_pad) <= -(-k // max(kc, 1)):
-            kc, pad = kc_pad, True
-    elif kernel == "matvec_shared":
-        fixed = smem_layout(sched, kernel, dtype, buf_len, kc=0)["bytes"]
+    elif kernel == "matvec":
         budget = SMEM_HALF if fixed + per_vec <= SMEM_HALF else SMEM_LIMIT
         kc = _chunk(k, fixed, per_vec, budget, k)
     else:
@@ -317,18 +309,17 @@ def shared_chunk(sched: Schedule, kernel: str, dtype, k: int,
     if kc < 1:
         raise ValueError(f"{kernel}: the factors take {fixed} bytes of shared memory ({dtype}), "
                          f"no room for a column within the {SMEM_LIMIT}-byte limit of a CTA")
-    return kc, pad
+    return kc
 
 
 def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
-                kc: int = 1, pad: bool = False) -> dict:
+                kc: int = 1) -> dict:
     """The shared memory of one CTA of ``kernel``: the byte offset of each
     array (csrc/ldu.cu FactLayout / SolveLayout; for the matvecs, the
     vectors' offset ``x``), and the CTA's dynamic shared memory in all
-    (``bytes``).  "factorize", "solve" and "matvec" (W <= 16) take one lane
-    (and one vector); "solve_shared" and "matvec_shared" (W <= 16) one
-    factorization and ``kc`` of its right-hand sides (the solve's edge
-    blocks as 16 x 16 tiles with ``pad``).  ``buf_len`` is the length of the
+    (``bytes``).  "factorize" and "solve" take one lane (and one vector);
+    "solve_shared" and "matvec" (W <= 16) one factorization and ``kc`` of
+    its right-hand sides.  ``buf_len`` is the length of the
     schedule's int32 CSR buffer, copied to shared memory.  Tiles are padded
     to ``tile_width`` of the schedule's width class.  Raises ValueError for
     a CTA over the 227 KB it can have."""
@@ -370,8 +361,7 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
         if width_class(sched.width) != "w16":
             raise ValueError("the shared-factor solve takes W <= 16")
         sizes = {
-            # the edge blocks (slots N..S-1), 16-byte aligned for the tiles after
-            "e": -(-(S - N) * (TILE if pad else WW) * elem // 16) * 16,
+            "e": (S - N) * TILE * elem,  # the edge blocks (slots N..S-1) as 16 x 16 tiles
             "lu": N * TILE * elem,  # LU tiles
             "rd": N * TW * elem,  # 1 / diag(U)
             "psc": N * TW * elem,  # PS row scales
@@ -385,13 +375,6 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     elif kernel == "matvec":
         if width_class(sched.width) != "w16":
             raise ValueError("the staged matvec takes W <= 16")
-        sizes = {
-            "blocks": -(-S * WW * elem // 16) * 16,  # the lane's blocks
-            "x": N * TW * elem,  # its vector, padded to 16 a node
-        }
-    elif kernel == "matvec_shared":
-        if width_class(sched.width) != "w16":
-            raise ValueError("the shared-factor matvec takes W <= 16")
         sizes = {
             "blocks": -(-S * WW * elem // 16) * 16,  # the lane's blocks
             "x": kc * N * TW * elem,  # the chunk's vectors, padded to 16 a node
@@ -427,18 +410,18 @@ class DeviceSchedule:
         )
         self._layouts = {}
 
-    def layout(self, kernel: str, dtype, kc: int = 1, pad: bool = False):
+    def layout(self, kernel: str, dtype, kc: int = 1):
         """``smem_layout`` of this schedule as its C struct (for "matvec":
-        the offsets dict), made once per kernel, dtype, kc and pad."""
-        key = kernel, dtype, kc, pad
+        the offsets dict), made once per kernel, dtype and kc."""
+        key = kernel, dtype, kc
         if key not in self._layouts:
-            offsets = smem_layout(self.sched, kernel, dtype, self.buf.numel(), kc, pad)
+            offsets = smem_layout(self.sched, kernel, dtype, self.buf.numel(), kc)
             struct = _LAYOUT_STRUCTS.get(kernel)
             self._layouts[key] = (struct(*(offsets[n] for n, _ in struct._fields_))
                                   if struct else offsets)
         return self._layouts[key]
 
-    def chunk(self, kernel: str, dtype, k: int) -> tuple[int, bool]:
+    def chunk(self, kernel: str, dtype, k: int) -> int:
         """``shared_chunk`` of this schedule, made once per kernel, dtype and k."""
         key = "chunk", kernel, dtype, k
         if key not in self._layouts:
@@ -549,15 +532,17 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) ->
     PS·b, and one lane substitutes with the node's LU in registers.  One
     CTA barrier per level pass.  17 <= W <= 32: the same with a warp per
     node; 33 <= W <= 72: the CTA on one node at a time, a thread per row,
-    one CTA barrier per substitution step."""
+    one CTA barrier per substitution step.  With k > 1 and W <= 16: one CTA
+    per factorization and chunk of up to 32 of its columns, the factors
+    staged once, a warp a node and a lane a column."""
     fb, lu, ps = fact
     if not _plain_or_cuda(rhs):
         return ldu.solve(ds.plan, fact, rhs, rhs_per_fact)
     suffix, B, dev = _cuda_args(ds, rhs_per_fact, blocks=fb, lu=lu, ps=ps, x=rhs)
     k, kc = rhs_per_fact, 0
     if k > 1 and width_class(ds.sched.width) == "w16":
-        kc, pad = ds.chunk("solve_shared", rhs.dtype, k)
-        layout = ds.layout("solve_shared", rhs.dtype, kc, pad)
+        kc = ds.chunk("solve_shared", rhs.dtype, k)
+        layout = ds.layout("solve_shared", rhs.dtype, kc)
     else:
         layout = ds.layout("solve", rhs.dtype)
     out = torch.empty_like(rhs)
@@ -575,15 +560,18 @@ def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor,
 
     Replaces matvec_kernel / _call_matvec (dojo_tpu/pallas_ldu.py:292, :321).
     Bound on the card: reading the (B, S, W, W) blocks once (bytes).
-    Design: one CTA per lane, x in shared memory, one thread per output
-    row summing its node's slots in slot order."""
+    Design: W <= 16, one CTA per lane and chunk of its k vectors, the
+    lane's blocks and the chunk's vectors staged once in shared memory,
+    coalesced, a thread an output row for up to 6 vectors; wider blocks,
+    one CTA per vector, x in shared memory, a thread an output row.  A row
+    sums its node's slots in slot order."""
     if not _plain_or_cuda(x):
         return ldu.matvec(ds.plan, blocks, x, rhs_per_fact)
     suffix, B, dev = _cuda_args(ds, rhs_per_fact, blocks=blocks, x=x)
     k, kc, x_off, smem = rhs_per_fact, 0, 0, 0
     if width_class(ds.sched.width) == "w16":
-        kc, pad = ds.chunk("matvec_shared", x.dtype, k) if k > 1 else (1, False)
-        layout = ds.layout("matvec_shared" if k > 1 else "matvec", x.dtype, kc, pad)
+        kc = ds.chunk("matvec", x.dtype, k)
+        layout = ds.layout("matvec", x.dtype, kc)
         x_off, smem = layout["x"], layout["bytes"]
     out = torch.empty_like(x)
     if B:

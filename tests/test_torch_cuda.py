@@ -146,8 +146,8 @@ def test_shared_factor_kernels_match_plain_on_cuda(k):
     their plain versions on the same factors, at an odd B, float32 and
     float64: the solve without refinement to 2e-5 / 1e-10 of its scale, the
     matvec within 1e-5·Σ|E||x|; the launches with k > 1 are counted in
-    ``shared_launches`` (float64 at k=54 takes 8 chunks of 7 columns, the
-    last shorter)."""
+    ``shared_launches`` (float64 at k=3 takes 2 chunks of 2 columns, the
+    last shorter, and at k=54 27 chunks of 2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     lanes = 5
@@ -225,3 +225,44 @@ def test_shared_factor_w17_32_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     _check_class("humanoid", torch.float32, 4, k=54)
+
+
+# the model whose schedule stands for each width class
+CLASS_MODELS = {"quadruped": dict(timestep=0.05), "humanoid": {}, "block": {}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "dup", "comb"])
+@pytest.mark.parametrize("name", list(CLASS_MODELS))
+def test_block_lu_bitwise_on_cuda(name, kind):
+    """Each width class's factorize (quadruped W=14, humanoid W=22, block
+    W=70) on chip_smoke.swap_blocks, each node's block factored as made
+    (edge blocks zero), 3 seeds: every block LU and PS bitwise equal to the
+    plain block LU's (ldu.blu_factor: the arithmetic row swap and the fused
+    Schur update), and no smallest pivot at the floor where the plain one's
+    is not.  The dup blocks' pivots cancel to exactly 0, and the floor,
+    without the arithmetic swap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke as C
+
+    sched = build_schedule(models.get_mechanism(name, device="cpu", **CLASS_MODELS[name]).topo)
+    ds = L.DeviceSchedule(sched, "cuda")
+    for seed in range(3):
+        fact = L.factorize(ds, C.isolated_blocks(sched, kind, seed, 8, "cuda"))
+        res = C.lu_vs_plain(sched, *fact)
+        assert res["differ"] == 0 and res["floored"] == 0, res
+
+
+@pytest.mark.cuda
+def test_block_lu_bitwise_quadruped_kkt_on_cuda():
+    """The W <= 16 factorize on the quadruped KKT (float32, B=4): each
+    block LU and PS bitwise equal to the plain block LU's of the block the
+    kernel factored (its Schur-updated diagonal block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke as C
+
+    sched, blocks, _ = quadruped_kkt(torch.float32, "cuda")
+    res = C.lu_vs_plain(sched, *L.factorize(L.DeviceSchedule(sched, "cuda"), blocks))
+    assert res["blocks"] == 4 * sched.n_nodes and res["differ"] == 0, res

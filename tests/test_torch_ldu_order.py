@@ -237,13 +237,13 @@ def test_shared_memory_sizes(kkt):
     assert 2 * (max(want[torch.float32]) + 1024) <= 228 * 1024
 
 
-# the quadruped's shared-factor CTAs: {k: ((solve columns, edge blocks in
-# tiles, bytes), (matvec vectors, blocks in tiles, bytes))} of a CTA
+# the quadruped's shared-factor CTAs: {k: ((solve columns, bytes), (matvec
+# vectors, bytes))} of a CTA
 SHARED = {
-    torch.float32: {3: ((3, True, 121312), (3, False, 83392)),
-                    54: ((27, True, 201184), (18, False, 108352))},
-    torch.float64: {3: ((3, False, 201504), (3, False, 166784)),
-                    54: ((7, False, 228128), (18, False, 216704))},
+    torch.float32: {1: ((1, 114656), (1, 80064)), 3: ((3, 121312), (3, 83392)),
+                    54: ((27, 201184), (18, 108352))},
+    torch.float64: {1: ((1, 223712), (1, 160128)), 3: ((2, 230368), (3, 166784)),
+                    54: ((2, 230368), (18, 216704))},
 }
 
 
@@ -251,23 +251,20 @@ SHARED = {
 def test_shared_factor_chunks(kkt, dtype):
     """The columns a CTA of the W <= 16 shared-factor solve takes of a
     factorization's k (up to 32, in one CTA an SM; spread evenly; its edge
-    blocks staged as 16 x 16 tiles unless that takes more CTAs) and the
-    vectors a CTA of the matvec takes (two CTAs an SM in float32, whose
-    lane's blocks take 78,400 bytes), with their shared memory, the tiles and
-    vectors 16-byte aligned; and the one-vector matvec's CTA."""
+    blocks staged as 16 x 16 tiles) and the vectors a CTA of the matvec
+    takes (two CTAs an SM in float32, whose lane's blocks take 78,400
+    bytes), with their shared memory, the tiles and vectors 16-byte
+    aligned."""
     sched = kkt[0]
-    for k, ((kc, pad, nbytes), (kv, vpad, vbytes)) in SHARED[dtype].items():
-        assert L.shared_chunk(sched, "solve_shared", dtype, k) == (kc, pad)
-        layout = L.smem_layout(sched, "solve_shared", dtype, kc=kc, pad=pad)
+    for k, ((kc, nbytes), (kv, vbytes)) in SHARED[dtype].items():
+        assert L.shared_chunk(sched, "solve_shared", dtype, k) == kc
+        layout = L.smem_layout(sched, "solve_shared", dtype, kc=kc)
         assert layout["bytes"] == nbytes <= L.SMEM_LIMIT and layout["lu"] % 16 == 0
         fields = [n for n, _ in L._SolveLayout._fields_]
         assert list(layout) == fields and layout["x"] == layout["y"] == layout["prow"]
-        assert L.shared_chunk(sched, "matvec_shared", dtype, k) == (kv, vpad)
-        mv = L.smem_layout(sched, "matvec_shared", dtype, kc=kv, pad=vpad)
+        assert L.shared_chunk(sched, "matvec", dtype, k) == kv
+        mv = L.smem_layout(sched, "matvec", dtype, kc=kv)
         assert mv["bytes"] == vbytes <= L.SMEM_LIMIT and mv["x"] % 16 == 0
-    one = L.smem_layout(sched, "matvec", dtype)
-    assert one["x"] % 16 == 0 and one["bytes"] == {torch.float32: 80064,
-                                                     torch.float64: 160128}[dtype]
     assert L.smem_layout(sched, "matvec", torch.float32)["bytes"] <= L.SMEM_HALF
     with pytest.raises(ValueError, match="W <= 16"):
         L.shared_chunk(dataclasses.replace(sched, width=22), "solve_shared", dtype, 54)

@@ -10,7 +10,7 @@ difference that lands exactly on a float32 tie rounds twice in the port and
 could differ from the fused result by an ulp; none of these blocks meets
 one, and the test would show it.)
 
-Blocks, 12 real rows of W = 14 (pad rows identity):
+Blocks (chip_smoke.swap_blocks), 12 real rows of W = 14 (pad rows identity):
 - ``random``: rows of widely spread scales;
 - ``dup``: row j is a power of two times row i, so that after row scaling
   the two rows are equal and their pivot cancels exactly, unless a swap has
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from chip_smoke import swap_blocks
 from test_torch_cuda import quadruped_kkt
 
 from dojo_tpu import ldu as jldu
@@ -36,23 +37,6 @@ from dojo_tpu_torch import ldu
 
 W, N_REAL = 14, 12
 _jax_blu = jax.jit(jldu.blu_factor, static_argnums=1)
-
-
-def _blocks(kind, seed, count=64):
-    rng = np.random.default_rng(seed)
-    D = np.tile(np.eye(W, dtype=np.float32), (count, 1, 1))
-    n = N_REAL
-    R = rng.standard_normal((count, n, n)) * np.exp(rng.normal(scale=2, size=(count, n, 1)))
-    for b in range(count):
-        i, j, l = rng.choice(n, 3, replace=False)
-        if kind == "dup":
-            R[b, j] = R[b, i] * 2.0 ** rng.integers(-2, 3)
-        elif kind == "prop":
-            R[b, j] = R[b, i] * rng.uniform(-3, 3)
-        elif kind == "comb":
-            R[b, l] = R[b, i] * rng.uniform(-3, 3) + R[b, j] * rng.uniform(-3, 3)
-    D[:, :n, :n] = R.astype(np.float32)
-    return D
 
 
 def _smallest_pivot(LU, n):
@@ -79,7 +63,7 @@ def _check_matches(D, n):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("kind", ["random", "dup", "prop", "comb"])
 def test_blu_factor_matches_dojo_tpu_f32(kind, seed):
-    mine, ref = _check_matches(_blocks(kind, seed), N_REAL)
+    mine, ref = _check_matches(swap_blocks(kind, seed, 64, W, N_REAL), N_REAL)
     if kind == "dup":  # the rows that cancel exactly unless a swap rounds them
         floor = ldu.pivot_floor(torch.float32)
         assert (ref > floor).sum() >= 16
@@ -100,3 +84,32 @@ def test_blu_factor_matches_dojo_tpu_f32_quadruped(quadruped_nodes, level):
     lv = sched.levels[level]
     blocks = D[:, lv.nodes].reshape(-1, W, W)
     _check_matches(np.ascontiguousarray(blocks), int(lv.real_w))
+
+
+@pytest.mark.parametrize("name,kw", [("quadruped", dict(timestep=0.05)), ("humanoid", {}),
+                                     ("block", {})])
+def test_lu_vs_plain_counts(name, kw):
+    """chip_smoke.lu_vs_plain, the card's check of the factorize kernels'
+    block LUs, on the plain factorization of chip_smoke.isolated_blocks
+    (random blocks, none at the floor): no block differs; an LU entry
+    moved by one ulp is one block at one ulp; a pivot set to the floor is
+    one floored block."""
+    import chip_smoke as C
+    from dojo_tpu_torch import models
+    from dojo_tpu_torch.graph import build_schedule
+
+    sched = build_schedule(models.get_mechanism(name, device="cpu", **kw).topo)
+    fb, lu, ps = ldu.factorize(ldu.LduPlan(sched, "cpu"), C.isolated_blocks(sched, "random", 0, 4,
+                                                                           "cpu"))
+    res = C.lu_vs_plain(sched, fb, lu, ps)
+    assert res.pop("min_pivot") > ldu.pivot_floor(torch.float32)
+    assert res == dict(blocks=4 * sched.n_nodes, differ=0, ulps=0, floored=0, at_floor=0)
+    nd = int(sched.levels[0].nodes[0])
+    moved = lu.clone()
+    moved[1, nd, 0, 1] = torch.nextafter(moved[1, nd, 0, 1], torch.tensor(np.inf))
+    assert C.lu_vs_plain(sched, fb, moved, ps)["differ"] == 1
+    assert C.lu_vs_plain(sched, fb, moved, ps)["ulps"] == 1
+    moved = lu.clone()
+    moved[2, nd, 0, 0] = ldu.pivot_floor(torch.float32)
+    res = C.lu_vs_plain(sched, fb, moved, ps)
+    assert (res["differ"], res["floored"], res["at_floor"]) == (1, 1, 1)
