@@ -9,8 +9,11 @@ fallback.
 
 The kernels come in three width classes (``WIDTH_CLASSES``), each a kernel
 of its own picked from the schedule's block width W: W <= 16 (a half-warp
-per block, tiles padded to 16), 17..32 (a warp per block, tiles padded to
-W rounded up to a multiple of 8) and 33..72 (the whole CTA per block, a
+per block, tiles padded to 16), 17..32 (factorize and solve at each node's
+real width: a level's tile is its widest node rounded up to 8, 16, 24 or
+32, groups of 8 or 16 lanes or a warp per node, blocks staged at their
+real size; their input blocks' pad must be the assembler's, zero with
+identity on the diagonal blocks) and 33..72 (the whole CTA per block, a
 thread per row, tiles of W).  Each wrapper counts its kernel launches in
 ``<wrapper>.launches`` (a plain integer, all classes) and per class in
 ``<wrapper>.class_launches``.
@@ -52,9 +55,9 @@ def width_class(W: int) -> str:
 
 
 def tile_width(W: int) -> int:
-    """The padded width of a W x W tile in shared memory (csrc/ldu.cu
-    ldu_tile): 16 for W <= 16, W rounded up to a multiple of 8 up to 32,
-    W itself above."""
+    """The padded width of a W x W tile (csrc/ldu.cu ldu_tile): 16 for
+    W <= 16, W rounded up to a multiple of 8 up to 32 (the widest tile a
+    level of the 17..32 class takes), W itself above."""
     cls = width_class(W)
     return 16 if cls == "w16" else -(-W // 8) * 8 if cls == "w32" else W
 
@@ -74,6 +77,9 @@ _ARRAYS = (
     "fwd_ai", "fwd_i", "fwd_out", "fin_ptr", "fin_e",
     "bwd_ia", "bwd_a", "bin_ptr", "bin_e",
     "row_ptr", "row_slot", "slot_b",
+    # the 17..32 class's real widths (empty for the other classes)
+    "node_w", "slot_rc", "slot_off", "node_tile", "node_tvec", "pair_rec", "xtask_ptr", "xtask",
+    "tgt_rec", "upd_rec", "stask_ptr", "stask", "node_lu", "node_vec", "fin_rec", "bin_rec",
 )
 SMEM_LIMIT = 232448  # dynamic shared memory one CTA may opt into on sm_90 (227 KB)
 # the most a CTA may take for two to share an SM (228 KB, 1 KB reserved per CTA)
@@ -94,7 +100,8 @@ class _FactLayout(ctypes.Structure):  # C struct FactLayout (see smem_layout)
 
 class _SolveLayout(ctypes.Structure):  # C struct SolveLayout (see smem_layout)
     _fields_ = [(n, ctypes.c_int)
-                for n in ("e", "lu", "rd", "psc", "b", "t", "x", "y", "prow", "si", "bytes")]
+                for n in ("e", "lu", "rd", "psc", "b", "t", "x", "y", "ps", "prow", "si",
+                          "bytes")]
 
 
 _LAYOUT_STRUCTS = {"factorize": _FactLayout, "solve": _SolveLayout,
@@ -110,20 +117,23 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> tuple[str, str]:
+def build(defines: tuple = ()) -> tuple[str, str]:
     """Compile csrc/ldu.cu into a shared library unless a build of the same
-    source and flags exists.  Returns (library path, ptxas report: each
-    kernel's registers, spills and shared memory)."""
+    source and flags exists; ``defines`` are macros to set (LDU_PHASES: the
+    17..32 kernels' phase stamps, scripts/ldu_phase_split.py).  Returns
+    (library path, ptxas report: each kernel's registers, spills and shared
+    memory)."""
     with open(SOURCE, "rb") as f:
         src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     lib = os.path.join(BUILD_DIR, f"libdojo_ldu_{key}.so")
     log = lib + ".ptxas.txt"
     if os.path.exists(lib):
         return lib, open(log).read() if os.path.exists(log) else ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
+    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp, SOURCE]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -139,10 +149,11 @@ def build() -> tuple[str, str]:
 _LIBS: dict = {}
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built and loaded once per process."""
-    if "lib" not in _LIBS:
-        path, _ = build()
+def library(defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded kernel library (built with ``defines``, see build), built
+    and loaded once per process.  The wrappers launch the plain build's."""
+    if defines not in _LIBS:
+        path, _ = build(defines)
         lib = ctypes.CDLL(path)
         p, i = ctypes.c_void_p, ctypes.c_int
         for dt in ("f32", "f64"):
@@ -156,12 +167,15 @@ def library() -> ctypes.CDLL:
         lib.ldu_tile.restype = i
         lib.ldu_kernel_smem.argtypes = [i, i, i]
         lib.ldu_kernel_smem.restype = i
+        lib.ldu_set_stamps.argtypes = [p]
+        lib.ldu_set_stamps.restype = i
+        lib.ldu_stamps_per_cta.restype = i
         if lib.ldu_max_width() != MAXW:
             raise RuntimeError("csrc/ldu.cu's widest block differs from ldu_cuda.MAXW")
         if any(lib.ldu_tile(W) != tile_width(W) for W in range(1, MAXW + 1)):
             raise RuntimeError("csrc/ldu.cu ldu_tile differs from ldu_cuda.tile_width")
-        _LIBS["lib"] = lib
-    return _LIBS["lib"]
+        _LIBS[defines] = lib
+    return _LIBS[defines]
 
 
 def _grouped(keys, n_keys=None):
@@ -255,6 +269,8 @@ def _csr(sched: Schedule) -> dict:
         "row_slot": row_slot,
         "slot_b": slot_b,
     }
+    real = _real_widths(sched) if 16 < sched.width <= 32 else {}
+    arrays.update({k: real.get(k, []) for k in _ARRAYS[_ARRAYS.index("node_w"):]})
     # the kernels keep diagonal blocks in slots 0..N-1 and stage the solve's
     # edge blocks as the slot range N..S-1
     if any(sched.slot[(n, n)] != n for n in range(N)):
@@ -262,6 +278,109 @@ def _csr(sched: Schedule) -> dict:
     if min(arrays["fwd_ai"].tolist() + arrays["bwd_ia"].tolist(), default=N) < N:
         raise ValueError("a solve edge reads a diagonal slot")
     return {k: np.asarray(v, dtype=np.int32) for k, v in arrays.items()}
+
+
+def level_tile(w: int) -> int:
+    """The tile a level of real width w (<= 32) works at in the 17..32
+    class (csrc/ldu.cu level_tile): w rounded up to 8, 16, 24 or 32; its
+    groups are that many lanes up to 16, a warp above."""
+    return 8 if w <= 8 else 16 if w <= 16 else 24 if w <= 24 else 32
+
+
+ROW_CHUNK = 8  # rows of a target a Schur task of the 17..32 class forms (csrc/ldu.cu SROWS)
+
+
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+def _real_widths(sched: Schedule) -> dict:
+    """The 17..32 class's arrays, at each node's real width (struct Sched,
+    csrc/ldu.cu "factorize and solve, 17..32").
+
+    Every slot (a, b) has its real widths in ``slot_rc`` (n_a << 8 | n_b)
+    and a place in shared memory for its n_a real rows, W wide as in the
+    blocks (``slot_off``, offsets in elements, each place rounded up to 4
+    elements so that it starts 16-byte aligned; ``slot_off[S]`` is the
+    total): one contiguous span of a block, staged and written back in
+    16-byte pieces.  The factorize keeps each node's LU as a tile of its
+    level's width (level_tile) at ``node_tile`` (each tile one element
+    longer, so that the tiles of a level's nodes start in different banks)
+    and its reciprocals and PS at ``node_tvec``; the solve stages each
+    node's n real rows of LU and PS at ``node_lu`` and keeps its vectors of
+    n at ``node_vec`` (all with the total last).  Per level, its tasks: ``xtask`` (an X column:
+    pair within the level << 5 | column) and ``stask`` (up to ROW_CHUNK
+    rows of a target's column: target within the level << 7 | row chunk
+    << 5 | column), with their per-level offsets ``xtask_ptr`` /
+    ``stask_ptr``.  What a task reads comes as records, so that it takes
+    few dependent loads: ``pair_rec`` (per pair: E_{i,b}'s place, n_i << 8
+    | n_b, node i's tile and vectors, the pair's X tile in its level's X
+    tiles), ``tgt_rec`` (per target: its place and widths), ``upd_rec``
+    (per update, in tgt_upd's order: E_{a,i}'s place, n_i, its pair's X
+    tile), ``fin_rec`` / ``bin_rec`` (per solve edge, in fin_e / bin_e's
+    order: the edge block's place among the edge blocks, the other node's
+    vector offset (node x W), its width)."""
+    nw = np.asarray(sched.node_width, dtype=np.int64)
+    N, S, W = sched.n_nodes, sched.n_slots, sched.width
+    slot_a = np.zeros(S, dtype=np.int64)
+    slot_b = np.zeros(S, dtype=np.int64)
+    for (a, b), s in sched.slot.items():
+        slot_a[s], slot_b[s] = a, b
+    size = lambda s: _round4(int(nw[slot_a[s]]) * W)
+    slot_off = np.cumsum([0] + [size(s) for s in range(S)])
+    tile = np.zeros(N, dtype=np.int64)
+    for level in sched.levels:
+        tile[level.nodes] = level_tile(int(level.real_w))
+    node_tile = np.cumsum([0] + (tile * tile + 1).tolist())
+    node_tvec = np.cumsum([0] + tile.tolist())
+    pair_rec, xtask, xtask_ptr, stask, stask_ptr, x_len = [], [], [0], [], [0], 0
+    tgt_rec, upd_rec, u0 = [], [], 0
+    for level in sched.levels:
+        tw = level_tile(int(level.real_w))
+        pairs = list(dict.fromkeys(zip(level.upd_inv.tolist(), level.upd_ib.tolist())))
+        off, xoff = 0, {}
+        for p, (i, ib) in enumerate(pairs):
+            xoff[i, ib] = off
+            pair_rec += [slot_off[ib], nw[i] << 8 | nw[slot_b[ib]], node_tile[i], node_tvec[i], off]
+            off += _round4(tw * int(nw[slot_b[ib]]))
+            xtask += [p << 5 | c for c in range(nw[slot_b[ib]])]
+        tgts, _, grouped = _grouped(level.upd_tgt.tolist())
+        for t, tgt in enumerate(tgts):
+            tgt_rec += [slot_off[tgt], nw[slot_a[tgt]] << 8 | nw[slot_b[tgt]]]
+            stask += [t << 7 | r << 5 | c for r in range(-(-int(nw[slot_a[tgt]]) // ROW_CHUNK))
+                      for c in range(nw[slot_b[tgt]])]
+        for k in grouped:  # the updates in tgt_upd's order
+            ai, i, ib = int(level.upd_ai[k]), int(level.upd_inv[k]), int(level.upd_ib[k])
+            upd_rec += [slot_off[ai], nw[i], xoff[i, ib]]
+        x_len = max(x_len, off)
+        xtask_ptr.append(len(xtask))
+        stask_ptr.append(len(stask))
+    e0 = slot_off[N]
+    fwd = [(int(s), int(o)) for lv in sched.levels for s, o in zip(lv.fwd_ai, lv.fwd_i)]
+    bwd = [(int(s), int(o)) for lv in sched.levels for s, o in zip(lv.bwd_ia, lv.bwd_a)]
+    edge_rec = lambda edges, order: [v for e in order for v in (
+        slot_off[edges[e][0]] - e0, edges[e][1] * W, nw[edges[e][1]])]
+    fwd_a = np.concatenate([lv.fwd_a for lv in sched.levels]).tolist()
+    bwd_i = np.concatenate([lv.bwd_i for lv in sched.levels]).tolist()
+    return {
+        "node_w": nw,
+        "slot_rc": nw[slot_a] << 8 | nw[slot_b],
+        "slot_off": slot_off,
+        "node_tile": node_tile,
+        "node_tvec": node_tvec,
+        "pair_rec": pair_rec,
+        "xtask_ptr": xtask_ptr,
+        "xtask": xtask,
+        "tgt_rec": tgt_rec,
+        "upd_rec": upd_rec,
+        "stask_ptr": stask_ptr,
+        "stask": stask,
+        "node_lu": np.cumsum([0] + [_round4(int(n) * W) for n in nw]),
+        "node_vec": np.cumsum([0] + nw.tolist()),
+        "fin_rec": edge_rec(fwd, _grouped(fwd_a, N)[2]),
+        "bin_rec": edge_rec(bwd, _grouped(bwd_i, N)[2]),
+        "x_len": x_len,  # the most elements a level's X tiles take (not in the buffer)
+    }
 
 
 def _max_pairs(sched: Schedule) -> int:
@@ -312,6 +431,44 @@ def shared_chunk(sched: Schedule, kernel: str, dtype, k: int,
     return kc
 
 
+def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int) -> dict:
+    """The 17..32 class's shared-memory arrays (bytes), at real widths
+    (``_real_widths``): the factorize stages every slot's real rows, and
+    keeps every node's LU tile, reciprocals and PS in compact form and one
+    level's X tiles; the solve stages the edge blocks' real rows, each
+    node's real rows of LU and PS, and its node vectors at stride W."""
+    real = _real_widths(sched)
+    off, N = real["slot_off"], sched.n_nodes
+    a16 = lambda nbytes: -(-nbytes // 16) * 16  # each array 16-byte aligned
+    if kernel == "factorize":
+        tvec = int(real["node_tvec"][-1])
+        return {
+            "fb": a16(int(off[-1]) * elem),  # every slot's real rows
+            "lu": a16(int(real["node_tile"][-1]) * elem),  # every node's LU tile
+            "x": a16(real["x_len"] * elem),  # a level's X tiles
+            "rd": a16(tvec * elem),  # 1 / diag(U) of every node
+            "psc": a16(tvec * elem),  # their PS row scales
+            "red": 0,
+            "prow": a16(tvec * 4),  # their PS row sources
+            "si": a16(buf_len * 4),  # the schedule
+        }
+    W = sched.width
+    nlu, nvec = int(real["node_lu"][-1]), int(real["node_vec"][-1])
+    return {
+        "e": a16(int(off[-1] - off[N]) * elem),  # the edge blocks' real rows (slots N..S-1)
+        "lu": a16(nlu * elem),  # each node's LU, its n real rows
+        "rd": a16(nvec * elem),  # 1 / diag(U)
+        "psc": a16(nvec * elem),  # PS row scales
+        "b": a16(N * W * elem),  # right-hand side, at stride W
+        "t": a16(N * W * elem),  # D^{-1} b of the forward pass
+        "x": a16(N * W * elem),  # solution
+        "y": 0,
+        "ps": a16(nlu * elem),  # each node's PS, its n real rows, as staged
+        "prow": a16(nvec * 4),  # PS row sources
+        "si": a16(buf_len * 4),  # the schedule
+    }
+
+
 def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
                 kc: int = 1) -> dict:
     """The shared memory of one CTA of ``kernel``: the byte offset of each
@@ -329,7 +486,9 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     TW = tile_width(sched.width)
     NGROUPS = WIDTH_CLASSES[width_class(sched.width)][1]
     N, S, WW, TILE = sched.n_nodes, sched.n_slots, sched.width**2, TW * TW
-    if kernel == "factorize":
+    if kernel in ("factorize", "solve") and width_class(sched.width) == "w32":
+        sizes = _real_sizes(sched, kernel, elem, buf_len)
+    elif kernel == "factorize":
         K = _max_nodes(sched)
         sizes = {
             "fb": S * WW * elem,  # the lane's blocks, factored in place
@@ -354,6 +513,7 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
             "t": N * TW * elem,  # D^{-1} b of the forward pass
             "x": N * TW * elem,  # solution
             "y": NGROUPS * TW * elem,  # PS·b of each group's node
+            "ps": 0,
             "prow": N * TW * 4,  # PS row sources
             "si": buf_len * 4,  # the schedule
         }
@@ -369,6 +529,7 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
             "t": N * TW * kc * elem,  # D^{-1} b of the forward pass, then the solution
             "x": 0,
             "y": 0,
+            "ps": 0,
             "prow": N * TW * 4,  # PS row sources
             "si": buf_len * 4,  # the schedule
         }
@@ -499,10 +660,13 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
     run at once, a half-warp per node with its rows in registers, pivoting
     by shuffles without moving rows; X = D_i⁻¹E_{i,b} once per distinct
     pair, then each target block reduced by one half-warp in list order.
-    Three CTA barriers per level.  17 <= W <= 32: the same with a warp per
-    node; 33 <= W <= 72: the CTA on one node at a time, a thread per row,
-    two CTA barriers per pivot.  Rows swap arithmetically, as in
-    ldu.blu_factor."""
+    Three CTA barriers per level.  17 <= W <= 32: at each node's real
+    width (blocks staged compactly, a level's LUs in groups of 8 or 16
+    lanes or a warp, X a thread per column, the targets a thread per
+    column and 8 rows, LU and PS written at the end), the pad of the
+    blocks taken as the assembler makes it; 33 <= W <= 72: the CTA on one
+    node at a time, a thread per row, two CTA barriers per pivot.  Rows
+    swap arithmetically, as in ldu.blu_factor."""
     if not _plain_or_cuda(blocks):
         return ldu.factorize(ds.plan, blocks)
     suffix, B, dev = _cuda_args(ds, blocks=blocks)
@@ -530,8 +694,10 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) ->
     form) and the schedule in shared memory; a half-warp per node of a
     level pulls the edge contributions to its node in list order, gathers
     PS·b, and one lane substitutes with the node's LU in registers.  One
-    CTA barrier per level pass.  17 <= W <= 32: the same with a warp per
-    node; 33 <= W <= 72: the CTA on one node at a time, a thread per row,
+    CTA barrier per level pass.  17 <= W <= 32: at each node's real width
+    (edge blocks, LU and PS staged at their real size), the node's group
+    substituting with y_i in lane i, two steps a shuffle round;
+    33 <= W <= 72: the CTA on one node at a time, a thread per row,
     one CTA barrier per substitution step.  With k > 1 and W <= 16: one CTA
     per factorization and chunk of up to 32 of its columns, the factors
     staged once, a warp a node and a lane a column."""

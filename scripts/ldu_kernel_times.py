@@ -8,8 +8,11 @@ kernels, and prints one JSON line: the card's name and power limit
 (nvidia-smi) and the mean device time in ms (chip_smoke.time_ms: CUDA
 events behind a spin kernel) of
   - factorize, solve and matvec on the quadruped KKT at B=256 (W=14);
-  - factorize, solve and matvec on humanoid's (W=22) and block's (W=70)
-    KKT at B=64, bench_zoo's lanes;
+  - factorize, solve and matvec on humanoid's and walker's (W=22) and
+    block's (W=70) KKT at B=64, bench_zoo's lanes, and factorize and solve
+    for one lane alone;
+  - factorize and solve on humanoid's and walker's KKT in float64 at B=64
+    and for one lane (null where the checkout's lane does not fit a CTA);
   - solve and matvec with k=54 right-hand sides a factorization on the
     quadruped KKT at 1,280 lanes (the linearize's shape in bench.py's MPC).
 The KKTs are chip_smoke.model_kkt's (each model's initial state, a seed).
@@ -46,7 +49,8 @@ def main():
     L.library()
     dev, f32 = torch.device("cuda"), torch.float32
     out = {"root": os.path.abspath(args.root), "device": smi, "ms": {}}
-    cases = (("quadruped", 256, dict(timestep=0.05)), ("humanoid", 64, {}), ("block", 64, {}))
+    cases = (("quadruped", 256, dict(timestep=0.05)), ("humanoid", 64, {}), ("walker", 64, {}),
+             ("block", 64, {}))
     for name, lanes, kw in cases:
         mech = models.get_mechanism(name, device=dev, **kw).cast(f32)
         _, ds, blocks, rhs = C.model_kkt(mech, models.initialize(mech, name), lanes, dev)
@@ -57,6 +61,23 @@ def main():
             "solve": C.time_ms(lambda: L.solve(ds, fact, rhs), args.reps),
             "matvec": C.time_ms(lambda: L.matvec(ds, blocks, x), args.reps),
         }
+        if name in ("humanoid", "walker"):
+            for dtype in (f32, torch.float64):
+                m = mech if dtype == f32 else models.get_mechanism(name, device=dev).cast(dtype)
+                for b in (1, lanes):
+                    key = f"{name}_B{b}" + ("_f64" if dtype != f32 else "")
+                    if key in out["ms"]:
+                        continue
+                    _, ds_, bl, r = C.model_kkt(m, models.initialize(m, name), b, dev)
+                    try:
+                        f = L.factorize(ds_, bl)
+                    except ValueError as e:  # the lane does not fit a CTA
+                        out["ms"][key] = {"factorize": None, "solve": None, "error": str(e)}
+                        continue
+                    out["ms"][key] = {
+                        "factorize": C.time_ms(lambda: L.factorize(ds_, bl), args.reps),
+                        "solve": C.time_ms(lambda: L.solve(ds_, f, r), args.reps),
+                    }
         if name == "quadruped":
             knots, k = 1280, 54
             _, ds, blocks, _ = C.model_kkt(mech, models.initialize(mech, name), knots, dev)

@@ -173,7 +173,9 @@ def test_shared_factor_kernels_match_plain_on_cuda(k):
 
 def _check_class(name, dtype, lanes, k=1):
     """One model's KKT through its width class's three kernels against the
-    plain versions, with the test_pallas_ldu.py tolerances; a lane that does
+    plain versions, with the test_pallas_ldu.py tolerances, and in the
+    17..32 class every block LU and PS bitwise equal to ldu.blu_factor's of
+    the block the kernel factored (float32 and float64); a lane that does
     not fit a CTA raises ValueError (never the plain version)."""
     tol = 2e-5 if dtype == torch.float32 else 1e-10
     sched, blocks, r = model_kkt(name, dtype, "cuda", lanes)
@@ -190,6 +192,11 @@ def _check_class(name, dtype, lanes, k=1):
     ref = ldu.factorize(ds.plan, blocks)
     assert float((fact[0] - ref[0]).abs().max()) < 5e-3
     assert lu_identity_err(*fact, sched.n_nodes) < LU_TOL[dtype]
+    if cls == "w32":
+        import chip_smoke as C
+
+        res = C.lu_vs_plain(sched, *fact)
+        assert res["blocks"] == lanes * sched.n_nodes and res["differ"] == 0, res
     noise = np.random.default_rng(k).standard_normal((lanes * k, r.shape[-1]))
     flat = r.repeat_interleave(k, 0) + torch.as_tensor(noise, dtype=dtype, device="cuda")
     b = L.flat_to_nodes(ds.plan, flat).contiguous()
@@ -207,12 +214,13 @@ def _check_class(name, dtype, lanes, k=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [1, 3, 64])
-@pytest.mark.parametrize("name", ["pendulum", "snake", "walker", "humanoid", "block"])
+@pytest.mark.parametrize("name", ["pendulum", "snake", "hopper", "walker", "humanoid",
+                                  "twister", "block"])
 def test_width_classes_match_plain_on_cuda(name, lanes):
-    """Each width class (pendulum W=6; snake, walker, humanoid W=22; block
-    W=70) against the plain versions, float32 and float64, odd batches
-    included; humanoid's float64 lane and block's float64 factorize do not
-    fit a CTA and raise."""
+    """Each width class (pendulum W=6; snake, hopper, walker, humanoid,
+    twister W=22; block W=70) against the plain versions, float32 and
+    float64, odd batches included; block's float64 factorize does not fit
+    a CTA and raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     for dtype in (torch.float32, torch.float64):

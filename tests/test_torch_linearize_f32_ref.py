@@ -11,9 +11,10 @@ float32 step_w at the plant's options on the CPU; the knots kept are those
 that converged with μ at 1e-5.  At those same float32
 knots both packages linearize in float32, and dojo_tpu in float64 gives
 the value both are held to: error = max(|ΔA|, |ΔB|) / max(1, |A|∞) per
-knot.  The port is held to dojo_tpu: at every knot its error is at most
-10 times dojo_tpu's, or 2.5e-4 (chip_smoke's LIN_TOL) where dojo_tpu's is
-smaller.  Marked slow: dojo_tpu compiles its linearize in float32 and in
+knot.  The port is held to dojo_tpu over all knots: its median error at
+most 10 times dojo_tpu's median, its largest error at most 10 times
+dojo_tpu's largest or 2.5e-4 (chip_smoke's LIN_TOL), and no knot's
+smallest float32 pivot at the floor.  Marked slow: dojo_tpu compiles its linearize in float32 and in
 float64 (minutes on a CPU host).  With -s it prints both errors per knot,
 and the smallest pivot of each package's float32 LU there.
 
@@ -25,12 +26,13 @@ rounded the product of each Schur update apart (dojo_tpu's XLA code fuses
 it into one multiply-add) and moved rows exactly (dojo_tpu swaps them
 arithmetically), so nearly dependent rows cancelled to exactly 0.
 ldu.blu_factor now rounds as dojo_tpu's does (tests/test_torch_ldu_swap.py:
-bitwise on the same blocks), and no knot's pivot sits at the floor.  The
-per-knot gate can still fail at single knots: a knot's error, rounding
-noise on a pivot of ~5e-8, moves by a factor of more than 10 at most
-knots, and up to ~10^3, when w moves by one ulp (the second test prints
-it), so a per-knot comparison of two packages that do not round bitwise
-alike compares rounding luck."""
+bitwise on the same blocks), and no knot's pivot sits at the floor.  A
+knot's error alone is rounding noise on a pivot of ~5e-8: it moves by a
+factor of more than 10 at most knots, and up to ~10^3, when w moves by one
+ulp (the second test prints it), so a gate knot by knot (each within 10
+times dojo_tpu's) compares rounding luck, and failed dojo_tpu itself at 4
+knots with the two packages exchanged.  The gate over all knots still
+catches the fault above (errors up to 6,310 at pivots on the floor)."""
 
 import jax
 import jax.numpy as jnp
@@ -123,8 +125,14 @@ def test_float32_linearize_at_plant_knots(knots):
         print(f"knot {i}: port float32 {port[i]:.3g}, dojo_tpu float32 {ref[i]:.3g} "
               f"of max(1, |A|inf) = {scale[i]:.3g}; smallest LU pivot: port float32 "
               f"{piv_port[i]:.3g}, dojo_tpu float32 {piv_ref[i]:.3g}, float64 {piv_64[i]:.3g}")
-    bad = [i for i in range(len(port)) if port[i] > max(10 * ref[i], 2.5e-4)]
-    assert not bad, f"port float32 linearize off at knots {bad}: {port[bad]} vs {ref[bad]}"
+    floored = np.flatnonzero(piv_port <= ldu.pivot_floor(torch.float32)).tolist()
+    print(f"median error: port {np.median(port):.3g}, dojo_tpu {np.median(ref):.3g}; "
+          f"largest: port {port.max():.3g}, dojo_tpu {ref.max():.3g}")
+    assert not floored, f"port float32 LU: smallest pivot at the floor at knots {floored}"
+    assert np.median(port) <= 10 * np.median(ref), (
+        f"port median error {np.median(port)} over 10x dojo_tpu's {np.median(ref)}")
+    assert port.max() <= max(10 * ref.max(), 2.5e-4), (
+        f"port largest error {port.max()} over 10x dojo_tpu's {ref.max()} (or 2.5e-4)")
 
 
 def test_float32_pivots_off_the_floor_under_one_ulp(knots):

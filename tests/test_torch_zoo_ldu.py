@@ -4,7 +4,8 @@
 float64 on the CPU: the port's plain LDU against dojo_tpu.ldu (1e-12); the
 kernels' order of work (csrc/ldu.cu) run as plain PyTorch against ldu.py
 (1e-12); numpy models of the two new classes' block LU against
-ldu.blu_factor on blocks built to tie (exact); the kernels' schedule lists;
+ldu.blu_factor on blocks built to tie (exact; the 17..32 class at each
+node's real width); the kernels' schedule lists;
 each class's shared-memory bytes a lane takes, as numbers, and the
 ValueError of a lane that does not fit.  The kernels themselves run only
 on a card (tests/test_torch_cuda.py)."""
@@ -101,22 +102,25 @@ def _floor(a):
     return a if abs(a) > 1e-30 else (-1e-30 if a < 0 else 1e-30)
 
 
-def _register_lu(D, n, TW, group=32):
-    """block_lu of the 17..32 class in numpy: the block padded to a TW x TW
-    tile ([[D, 0], [0, I]]), a group of 32 lanes of which lanes r >= TW hold
-    zero rows, lazy pivoting over positions k..n-1 (key pos * group + r,
-    largest value, then lowest key) with the arithmetic row swap, the pivot
-    floored when taken."""
-    W = D.shape[0]
+def _register_lu(D, n, TW, group, n_loop):
+    """real_lu of the 17..32 class in numpy: the node's real n x n block
+    ([:n, :n] of D) in a tile of TW ([[D, 0], [0, I]]), a group of `group`
+    lanes of which lanes r >= TW hold zero rows, lazy pivoting over
+    positions k..n_loop-1 (n_loop >= n: the widest node of the warp; the
+    pivots past n are the pad's identity rows) with key pos * group + r
+    (largest value, then lowest key) and the arithmetic row swap, the pivot
+    floored when taken.  Returns the real n x n LU and PS, after checking
+    that the tile's pad is identity."""
     m = np.zeros((group, TW))
-    m[:W, :W] = D
-    m[W:TW, W:TW] = np.eye(TW - W)
+    m[:n, :n] = D[:n, :n]
+    m[n:TW, n:TW] = np.eye(TW - n)
     rmax = np.abs(m).max(axis=1)
     sc = np.where(rmax > 0, 1.0 / np.where(rmax > 0, rmax, 1.0), 1.0)
     m *= sc[:, None]
     pos = np.arange(group)
-    for k in range(n):
-        cand = [(abs(m[r, k]), -(pos[r] * group + r), r) for r in range(group) if k <= pos[r] < n]
+    for k in range(n_loop):
+        cand = [(abs(m[r, k]), -(pos[r] * group + r), r) for r in range(group)
+                if k <= pos[r] < n_loop]
         key = -max(cand)[1]
         pl, ppos = key % group, key // group
         _swap_rows(m, np.flatnonzero(pos == k)[0], pl)
@@ -132,7 +136,10 @@ def _register_lu(D, n, TW, group=32):
     LU, PS = np.empty((TW, TW)), np.zeros((TW, TW))
     LU[pos[:TW]] = m[:TW]
     PS[pos[:TW], np.arange(TW)] = sc[:TW]
-    return LU[:W, :W], PS[:W, :W]
+    np.testing.assert_array_equal(LU[n:, n:], np.eye(TW - n))
+    assert not LU[:n, n:].any() and not LU[n:, :n].any()
+    np.testing.assert_array_equal(PS[n:, n:], np.eye(TW - n))
+    return LU[:n, :n], PS[:n, :n]
 
 
 def _wide_lu(D, n):
@@ -180,16 +187,33 @@ def _wide_lu(D, n):
     return LU, PS
 
 
-@pytest.mark.parametrize("W, n, TW", [(22, 19, 24), (22, 22, 24), (29, 25, 32)])
-def test_register_class_lu_matches_blu_factor(W, n, TW):
-    """The 17..32 class's block LU at its padded tile against ldu.blu_factor
-    (exact), pivot ties included."""
+def _check_register_lu(W, n, TW, n_loop):
     D = _tied_blocks(W, n, W)
     lu, ps = ldu.blu_factor(torch.as_tensor(D), n)
+    eye = np.eye(W)
     for b in range(D.shape[0]):
-        LU, PS = _register_lu(D[b], n, TW)
-        np.testing.assert_array_equal(LU, lu[b].numpy())
-        np.testing.assert_array_equal(PS, ps[b].numpy())
+        LU, PS = _register_lu(D[b], n, TW, TW if TW <= 16 else 32, n_loop)
+        np.testing.assert_array_equal(LU, lu[b, :n, :n].numpy())
+        np.testing.assert_array_equal(PS, ps[b, :n, :n].numpy())
+        np.testing.assert_array_equal(lu[b, n:, n:].numpy(), eye[n:, n:])
+
+
+@pytest.mark.parametrize("W, n, TW", [(22, 6, 8), (22, 14, 16), (22, 19, 24), (22, 22, 24),
+                                      (29, 25, 32)])
+def test_register_class_lu_matches_blu_factor(W, n, TW):
+    """The 17..32 class's block LU of a node's real n x n block at its
+    level's tile (groups of 8 or 16 lanes, or a warp) against
+    ldu.blu_factor of the W x W block at width n on the real part (exact),
+    pivot ties included; the pad is identity in both."""
+    _check_register_lu(W, n, TW, n)
+
+
+@pytest.mark.parametrize("n, n_loop", [(6, 22), (14, 22)])
+def test_register_class_lu_pad_pivots(n, n_loop):
+    """A node narrower than its warp's widest (humanoid's 6-wide nodes at
+    level 0, tile 24) pivots on to n_loop through its pad's identity rows:
+    its real part is still ldu.blu_factor's at width n, exactly."""
+    _check_register_lu(22, n, 24, n_loop)
 
 
 @pytest.mark.parametrize("W, n", [(70, 64), (70, 70), (38, 33)])
@@ -217,22 +241,22 @@ def test_width_classes():
 # one lane's shared memory in bytes: (factorize, solve); None where the
 # lane does not fit the 232,448 bytes a CTA may have
 SMEM = {
-    ("humanoid", torch.float32): (226416, 222928),
-    ("walker", torch.float32): (117192, 116776),
+    ("humanoid", torch.float32): (94624, 97456),
+    ("walker", torch.float32): (102176, 101856),
     ("block", torch.float32): (119256, 82232),
-    ("snake", torch.float32): (30964, 28308),
-    ("humanoid", torch.float64): (None, None),
-    ("walker", torch.float64): (232072, 230088),
+    ("snake", torch.float32): (26816, 24880),
+    ("humanoid", torch.float64): (177600, 183616),
+    ("walker", torch.float64): (194704, 194192),
     ("block", torch.float64): (None, 163712),
 }
 
 
 @pytest.mark.parametrize("name, dtype", list(SMEM), ids=[f"{n}-{str(d)[6:]}" for n, d in SMEM])
 def test_shared_memory_bytes(name, dtype):
-    """A lane's shared memory in each class (humanoid fits only at tiles
-    padded to 24), and the ValueError, with the bytes, of a lane over the
-    limit: such a lane never reaches a kernel, and never the plain version
-    on a card."""
+    """A lane's shared memory in each class (17..32 at real widths, so that
+    humanoid fits in float64 too), and the ValueError, with the bytes, of a
+    lane over the limit: such a lane never reaches a kernel, and never the
+    plain version on a card."""
     sched = model_kkt(name, torch.float64, lanes=1)[0]
     for kernel, want in zip(("factorize", "solve"), SMEM[name, dtype]):
         if want is None:
