@@ -78,7 +78,8 @@ _ARRAYS = (
     "bwd_ia", "bwd_a", "bin_ptr", "bin_e",
     "row_ptr", "row_slot", "slot_b",
     # the 17..32 class's real widths (empty for the other classes)
-    "node_w", "slot_rc", "slot_off", "node_tile", "node_tvec", "pair_rec", "xtask_ptr", "xtask",
+    "level_tw", "node_w", "slot_rc", "slot_off", "node_tile", "node_tvec", "pair_rec", "xtask_ptr",
+    "xtask",
     "tgt_rec", "upd_rec", "stask_ptr", "stask", "node_lu", "node_vec", "fin_rec", "bin_rec",
 )
 SMEM_LIMIT = 232448  # dynamic shared memory one CTA may opt into on sm_90 (227 KB)
@@ -270,7 +271,7 @@ def _csr(sched: Schedule) -> dict:
         "slot_b": slot_b,
     }
     real = _real_widths(sched) if 16 < sched.width <= 32 else {}
-    arrays.update({k: real.get(k, []) for k in _ARRAYS[_ARRAYS.index("node_w"):]})
+    arrays.update({k: real.get(k, []) for k in _ARRAYS[_ARRAYS.index("level_tw"):]})
     # the kernels keep diagonal blocks in slots 0..N-1 and stage the solve's
     # edge blocks as the slot range N..S-1
     if any(sched.slot[(n, n)] != n for n in range(N)):
@@ -290,13 +291,27 @@ def level_tile(w: int) -> int:
 ROW_CHUNK = 8  # rows of a target a Schur task of the 17..32 class forms (csrc/ldu.cu SROWS)
 
 
+def level_tiles(sched: Schedule) -> list:
+    """The tile each level of the 17..32 factorize works at: its
+    level_tile, unless the tiles would switch more than once along the
+    levels (snake, twister: 24, 8, 24, 8, ...), where every level takes the
+    widest.  Each tile is its own code, and a level that switches back runs
+    it cold: on those schedules that cost the factorize more than the
+    narrow levels save; the solve, whose code a tile is small, keeps each
+    level's own (PERF.md §6)."""
+    tiles = [level_tile(int(lv.real_w)) for lv in sched.levels]
+    switches = sum(a != b for a, b in zip(tiles, tiles[1:]))
+    return tiles if switches <= 1 else [max(tiles)] * len(tiles)
+
+
 def _round4(n):
     return -(-n // 4) * 4
 
 
 def _real_widths(sched: Schedule) -> dict:
     """The 17..32 class's arrays, at each node's real width (struct Sched,
-    csrc/ldu.cu "factorize and solve, 17..32").
+    csrc/ldu.cu "factorize and solve, 17..32"): ``level_tw``, the tile
+    each factorize level works at (level_tiles).
 
     Every slot (a, b) has its real widths in ``slot_rc`` (n_a << 8 | n_b)
     and a place in shared memory for its n_a real rows, W wide as in the
@@ -328,15 +343,15 @@ def _real_widths(sched: Schedule) -> dict:
         slot_a[s], slot_b[s] = a, b
     size = lambda s: _round4(int(nw[slot_a[s]]) * W)
     slot_off = np.cumsum([0] + [size(s) for s in range(S)])
+    tiles = level_tiles(sched)
     tile = np.zeros(N, dtype=np.int64)
-    for level in sched.levels:
-        tile[level.nodes] = level_tile(int(level.real_w))
+    for level, tw in zip(sched.levels, tiles):
+        tile[level.nodes] = tw
     node_tile = np.cumsum([0] + (tile * tile + 1).tolist())
     node_tvec = np.cumsum([0] + tile.tolist())
     pair_rec, xtask, xtask_ptr, stask, stask_ptr, x_len = [], [], [0], [], [0], 0
     tgt_rec, upd_rec, u0 = [], [], 0
-    for level in sched.levels:
-        tw = level_tile(int(level.real_w))
+    for level, tw in zip(sched.levels, tiles):
         pairs = list(dict.fromkeys(zip(level.upd_inv.tolist(), level.upd_ib.tolist())))
         off, xoff = 0, {}
         for p, (i, ib) in enumerate(pairs):
@@ -363,6 +378,7 @@ def _real_widths(sched: Schedule) -> dict:
     fwd_a = np.concatenate([lv.fwd_a for lv in sched.levels]).tolist()
     bwd_i = np.concatenate([lv.bwd_i for lv in sched.levels]).tolist()
     return {
+        "level_tw": tiles,
         "node_w": nw,
         "slot_rc": nw[slot_a] << 8 | nw[slot_b],
         "slot_off": slot_off,

@@ -13,6 +13,8 @@ events behind a spin kernel) of
     for one lane alone;
   - factorize and solve on humanoid's and walker's KKT in float64 at B=64
     and for one lane (null where the checkout's lane does not fit a CTA);
+  - factorize and solve on the other 17..32 models' KKTs (snake, hopper,
+    twister) at B=64;
   - solve and matvec with k=54 right-hand sides a factorization on the
     quadruped KKT at 1,280 lanes (the linearize's shape in bench.py's MPC).
 The KKTs are chip_smoke.model_kkt's (each model's initial state, a seed).
@@ -89,6 +91,14 @@ def main():
             ms["solve_k54_B1280"] = C.time_ms(lambda: L.solve(ds, fact, b, k), 5)
             ms["matvec_k54_B1280"] = C.time_ms(lambda: L.matvec(ds, blocks, xk, k), 5)
         torch.cuda.synchronize()
+    for name in ("snake", "hopper", "twister"):
+        mech = models.get_mechanism(name, device=dev).cast(f32)
+        _, ds, blocks, rhs = C.model_kkt(mech, models.initialize(mech, name), 64, dev)
+        fact = L.factorize(ds, blocks)
+        out["ms"][f"{name}_B64"] = {
+            "factorize": C.time_ms(lambda: L.factorize(ds, blocks), args.reps),
+            "solve": C.time_ms(lambda: L.solve(ds, fact, rhs), args.reps),
+        }
     print(json.dumps(out), flush=True)
 
 

@@ -107,7 +107,9 @@ def test_schur_terms_at_real_width_are_bitwise(factored):
 
 @pytest.mark.parametrize("name", MODELS + ("hopper", "twister"))
 def test_real_width_schedule_places(name):
-    """_csr's real-width arrays: each slot's place holds its n_a real rows,
+    """_csr's real-width arrays: each level's tile (its own, or the widest
+    where the tiles would switch more than once); each slot's place holds
+    its n_a real rows,
     W wide, 16-byte aligned, the places tile the staged blocks in slot
     order without overlap; the nodes' tiles (one element apart) and places
     likewise; each level's tasks cover every column of its X tiles and
@@ -129,9 +131,12 @@ def test_real_width_schedule_places(name):
     tw = np.diff(a["node_tvec"])
     assert (np.diff(a["node_tile"]) == tw * tw + 1).all()
     rec = lambda name, k, size: a[name][size * k : size * (k + 1)].tolist()
+    tiles = [L.level_tile(int(lv.real_w)) for lv in sched.levels]
+    switches = sum(x != y for x, y in zip(tiles, tiles[1:]))
+    assert a["level_tw"].tolist() == (tiles if switches <= 1 else [max(tiles)] * len(tiles))
     for k, lv in enumerate(sched.levels):
         p0, p1 = a["pair_ptr"][k], a["pair_ptr"][k + 1]
-        assert (tw[lv.nodes] == L.level_tile(int(lv.real_w))).all()
+        assert (tw[lv.nodes] == a["level_tw"][k]).all()
         xt = a["xtask"][a["xtask_ptr"][k] : a["xtask_ptr"][k + 1]]
         want, ends = set(), []
         for p in range(p0, p1):
@@ -171,10 +176,10 @@ def test_real_width_schedule_places(name):
 
 # one lane's shared memory in the 17..32 class, (factorize, solve) bytes
 REAL_SMEM = {
-    ("humanoid", torch.float32): (94624, 97456),
-    ("humanoid", torch.float64): (177600, 183616),
-    ("walker", torch.float32): (102176, 101856),
-    ("walker", torch.float64): (194704, 194192),
+    ("humanoid", torch.float32): (94672, 97504),
+    ("humanoid", torch.float64): (177648, 183664),
+    ("walker", torch.float32): (102208, 101888),
+    ("walker", torch.float64): (194736, 194224),
 }
 
 

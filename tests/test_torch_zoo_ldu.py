@@ -241,12 +241,12 @@ def test_width_classes():
 # one lane's shared memory in bytes: (factorize, solve); None where the
 # lane does not fit the 232,448 bytes a CTA may have
 SMEM = {
-    ("humanoid", torch.float32): (94624, 97456),
-    ("walker", torch.float32): (102176, 101856),
+    ("humanoid", torch.float32): (94672, 97504),
+    ("walker", torch.float32): (102208, 101888),
     ("block", torch.float32): (119256, 82232),
-    ("snake", torch.float32): (26816, 24880),
-    ("humanoid", torch.float64): (177600, 183616),
-    ("walker", torch.float64): (194704, 194192),
+    ("snake", torch.float32): (31312, 24896),
+    ("humanoid", torch.float64): (177648, 183664),
+    ("walker", torch.float64): (194736, 194224),
     ("block", torch.float64): (None, 163712),
 }
 
