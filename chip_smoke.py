@@ -9,7 +9,9 @@ Phases, each printed as one JSON line with elapsed seconds:
   kernels  — the three block-LDU kernels against their plain PyTorch
              versions on the quadruped KKT at B=256, float32 (factorize
              also on L·U = PS·D, and each block LU bitwise against the
-             plain one's on the blocks the kernel factored), with times at
+             plain one's on the blocks the kernel factored; the solve
+             unrefined on the kernel's factors and refined once; each
+             limit checked to reject a control off by ~1e-3), with times at
              B=256 and for one lane, and the dynamic shared memory each
              kernel was launched with;
   lu_swap  — each width class's factorize on blocks whose pivots cancel
@@ -266,17 +268,24 @@ def swap_blocks(kind, seed, count=64, W=14, n=12):
 
 def isolated_blocks(sched, kind, seed, lanes, device):
     """A schedule's blocks (lanes, S, W, W), float32, with each node's
-    diagonal block from swap_blocks at the node's real width (the seed plus
-    the node; its pad identity, as the assembler makes it) and every edge
+    diagonal block from swap_blocks (the seed plus the node) and every edge
     block zero, so that each node's block is factored as made (its Schur
-    updates subtract exact zeros)."""
+    updates subtract exact zeros).  A block's real width is its level's
+    (the width the W ≤ 16 and 33–72 kernels pivot to), and in the 17–32
+    class, whose kernels factor each node at its own width and take its
+    pad as the assembler makes it (identity), the node's."""
     import numpy as np
     import torch
 
+    from dojo_tpu_torch.ldu_cuda import width_class
+
     W = sched.width
+    own = width_class(W) == "w32"
     blocks = np.zeros((lanes, sched.n_slots, W, W), dtype=np.float32)
-    for nd in range(sched.n_nodes):
-        blocks[:, nd] = swap_blocks(kind, seed + nd, lanes, W, int(sched.node_width[nd]))
+    for lv in sched.levels:
+        for nd in lv.nodes:
+            n = int(sched.node_width[nd]) if own else int(lv.real_w)
+            blocks[:, nd] = swap_blocks(kind, seed + int(nd), lanes, W, n)
     return torch.as_tensor(blocks, device=device)
 
 
@@ -396,17 +405,35 @@ def model_kkt(mech, state, lanes, dev, init_w=None, seed=0):
     return sched, ds, blocks, rhs
 
 
+def control(t, seed=0):
+    """t with each entry scaled by 1 + 1e-3·N(0, 1) (from a seed): an output
+    off by about 1e-3, which every limit of check_kernels must reject."""
+    import torch
+
+    z = torch.randn(t.shape, generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+    return t * (1 + 1e-3 * z).to(t.device, t.dtype)
+
+
 def check_kernels(ds, blocks, rhs, what):
-    """The three kernels against their plain versions on one KKT, with the
-    test_pallas_ldu.py tolerances: factored blocks to 5e-3, L·U = PS·D to
-    1e-4 of |PS·D| (float64: 1e-12), each block LU bitwise equal to the
-    plain one's on the blocks the kernel factored (lu_vs_plain: the
-    arithmetic row swap and the Schur update rounded as ldu.schur_fma;
-    float64 in the 17..32 class only), solve + one refinement sweep to
-    2e-5 of its scale (float64: 1e-10) with a relative residual under
-    1e-4, matvec to 1e-5·Σ|E||x| (the rounding of W float32 products and
-    the slot sum).  Returns (errors, kernel factors, kernel solution,
-    |Σ|E||x| per entry)."""
+    """The three kernels against their plain versions on one KKT.  Each
+    limit lies between a sound kernel's reading and a control's (the plain
+    output scaled by 1 + 1e-3·N(0, 1), which must fail it):
+    - factored blocks to 2e-5 of max|fb| (float64: 1e-12); L·U = PS·D to
+      1e-4 of |PS·D| (float64: 1e-12); each block LU bitwise equal to the
+      plain one's on the blocks the kernel factored (lu_vs_plain: the
+      arithmetic row swap and the Schur update rounded as ldu.schur_fma;
+      float64 in the 17..32 class only);
+    - the solve alone, unrefined, on the kernel's factors (bitwise the
+      plain ones') against the plain solve on the same factors: to
+      max(2e-5, 4·e) of its scale, e the plain float32 solve's own error
+      against float64 on those factors (float64: 1e-12); then solve + one
+      refinement sweep to 2e-5 of its scale (float64: 1e-10) with a
+      relative residual under 1e-4;
+    - matvec to 1e-5·Σ|E||x| (the rounding of W float32 products and the
+      slot sum).
+    Returns (errors: "solve" is the unrefined solve's, "limits" each
+    check's (reading, limit, control) relative to its scale; kernel
+    factors, kernel solution, Σ|E||x| per entry)."""
     import torch
 
     from dojo_tpu_torch import ldu, ldu_cuda as L
@@ -414,11 +441,21 @@ def check_kernels(ds, blocks, rhs, what):
     f64 = blocks.dtype == torch.float64
     check(not f64 or L.width_class(ds.sched.width) == "w32",
           f"{what}: float64 block LUs are bitwise the plain ones' in the 17..32 class only")
-    tol_lu, tol_solve = (1e-12, 1e-10) if f64 else (1e-4, 2e-5)
+    tol_fb, tol_lu, tol_refined = (1e-12, 1e-12, 1e-10) if f64 else (2e-5, 1e-4, 2e-5)
+    rel = lambda a, b, scale: (a - b).abs().max().item() / scale
+    limits = {}
+
+    def hold(name, reading, limit, ctl):
+        limits[name] = (reading, limit, ctl)
+        check(reading < limit, f"{what} {name}: {reading} of scale (limit {limit})")
+        check(ctl > limit, f"{what} {name}: the control reads {ctl}, under the limit {limit}")
+
     fact_k = L.factorize(ds, blocks)
     fact_p = ldu.factorize(ds.plan, blocks)
     err_fact = (fact_k[0] - fact_p[0]).abs().max().item()
-    check(err_fact < 5e-3, f"{what} factorize: factored blocks differ by {err_fact} (atol 5e-3)")
+    fb_scale = fact_p[0].abs().max().item()
+    hold("factorize", err_fact / fb_scale, tol_fb,
+         rel(control(fact_p[0]), fact_p[0], fb_scale))
     # LU and PS may differ from the plain version's where pivot magnitudes
     # tie to rounding; the contract on them is L·U = PS·D for every node
     err_lu = lu_identity_err(*fact_k, ds.sched.n_nodes)
@@ -427,13 +464,23 @@ def check_kernels(ds, blocks, rhs, what):
     check(lu_plain["differ"] == 0, f"{what} factorize: {lu_plain['differ']} of "
           f"{lu_plain['blocks']} block LUs differ from the plain one's, by up to "
           f"{lu_plain['ulps']} ulps")
+    x0_k = L.solve(ds, fact_k, rhs)
+    x0_p = ldu.solve(ds.plan, fact_k, rhs)
+    scale0 = x0_p.abs().max().item()
+    err_solve0 = (x0_k - x0_p).abs().max().item()
+    if f64:
+        tol_solve0 = 1e-12
+    else:
+        x0_64 = ldu.solve(ds.plan, [f.double() for f in fact_k], rhs.double())
+        tol_solve0 = max(2e-5, 4 * rel(x0_p.double(), x0_64, scale0))
+    hold("solve", err_solve0 / scale0, tol_solve0, rel(control(x0_p), x0_p, scale0))
     x_k = L.solve_refine(ds, blocks, fact_k, rhs, 1)
     x_p = ldu.solve(ds.plan, fact_p, rhs)
     x_p = x_p + ldu.solve(ds.plan, fact_p, rhs - ldu.matvec(ds.plan, blocks, x_p))
     scale = x_p.abs().max().item()
     err_solve = (x_k - x_p).abs().max().item()
-    check(err_solve < tol_solve * scale,
-          f"{what} solve: {err_solve} of scale {scale} ({tol_solve})")
+    check(err_solve < tol_refined * scale,
+          f"{what} solve refined: {err_solve} of scale {scale} ({tol_refined})")
     res = rhs - ldu.matvec(ds.plan, blocks, x_k)
     relres = (res.flatten(1).norm(dim=1) / rhs.flatten(1).norm(dim=1).clamp_min(1e-30)).max().item()
     check(relres < 1e-4, f"{what} solve: relative residual {relres} (1e-4)")
@@ -443,9 +490,9 @@ def check_kernels(ds, blocks, rhs, what):
     err_mv = (y_k - y_p).abs().max().item()
     check(bool(((y_k - y_p).abs() <= 1e-5 * mag + 1e-30).all()),
           f"{what} matvec: max error {err_mv} exceeds 1e-5·Σ|E||x|")
-    errors = {"factorize": err_fact, "solve": err_solve, "matvec": err_mv,
-              "lu_identity": err_lu, "relres": relres, "solve_scale": scale,
-              "lu_blocks": lu_plain["blocks"]}
+    errors = {"factorize": err_fact, "solve": err_solve0, "matvec": err_mv,
+              "solve_refined": err_solve, "lu_identity": err_lu, "relres": relres,
+              "solve_scale": scale, "lu_blocks": lu_plain["blocks"], "limits": limits}
     return errors, fact_k, x_k, mag
 
 
@@ -922,7 +969,7 @@ def zoo_phase(K=ZOO_K, B=ZOO_B, names=ZOO_MODELS, device="cuda"):
              reference_fails_too=name in ZOO_REFERENCE_FAILS,
              launches={n: launches[n][cls] for n in launches}, kernels=kernels,
              lu_identity=errors["lu_identity"], relres=errors["relres"],
-             seconds=time.perf_counter() - t0)
+             limits=errors["limits"], seconds=time.perf_counter() - t0)
         check(finite, f"zoo {name}: non-finite state after the timed steps")
         for n, c in launches.items():
             check(c[cls] > 0, f"zoo {name}: kernel {n} of class {cls} was not launched")
@@ -948,6 +995,7 @@ def zoo_phase(K=ZOO_K, B=ZOO_B, names=ZOO_MODELS, device="cuda"):
         emit("zoo_kkt", model=name, dtype=dt, W=sched.width, width_class=cls, B=B,
              lu_blocks_bitwise=errors["lu_blocks"], lu_identity=errors["lu_identity"],
              relres=errors["relres"], solve_scale=errors["solve_scale"],
+             limits=errors["limits"],
              kernels={n: dict(ms=time_ms(fn, 10), bound_ms=bound(*need[n], dt)[0],
                               bound_ms_real=bound(*need_real[n], dt)[0],
                               max_abs_err=errors[n]) for n, fn in calls.items()})
@@ -989,6 +1037,7 @@ def main():
     table = kernel_rows(ds, blocks, fact_k, rhs, x_k, mag, errors, "quadruped")
     emit("kernels", model="quadruped", B=B, dtype="float32", relres=errors["relres"],
          solve_scale=errors["solve_scale"], lu_identity=errors["lu_identity"],
+         limits=errors["limits"],
          kernels=list(table.values()))
     emit("lu_swap", lanes=16, blocks=lu_swap_phase())
     step = make_step(topo, SolverOptions(rtol=1e-6, btol=1e-4, max_iter=30))

@@ -56,10 +56,12 @@ def width_class(W: int) -> str:
 
 def tile_width(W: int) -> int:
     """The padded width of a W x W tile (csrc/ldu.cu ldu_tile): 16 for
-    W <= 16, W rounded up to a multiple of 8 up to 32 (the widest tile a
-    level of the 17..32 class takes), W itself above."""
+    W <= 16, W itself for 33..72.  The 17..32 class has no single tile:
+    each level takes its own (``level_tiles``), and this raises ValueError."""
     cls = width_class(W)
-    return 16 if cls == "w16" else -(-W // 8) * 8 if cls == "w32" else W
+    if cls == "w32":
+        raise ValueError(f"block width {W}: the 17..32 class has no single tile")
+    return 16 if cls == "w16" else W
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "ldu.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -173,7 +175,8 @@ def library(defines: tuple = ()) -> ctypes.CDLL:
         lib.ldu_stamps_per_cta.restype = i
         if lib.ldu_max_width() != MAXW:
             raise RuntimeError("csrc/ldu.cu's widest block differs from ldu_cuda.MAXW")
-        if any(lib.ldu_tile(W) != tile_width(W) for W in range(1, MAXW + 1)):
+        if any(lib.ldu_tile(W) != (-1 if width_class(W) == "w32" else tile_width(W))
+               for W in range(1, MAXW + 1)):
             raise RuntimeError("csrc/ldu.cu ldu_tile differs from ldu_cuda.tile_width")
         _LIBS[defines] = lib
     return _LIBS[defines]
@@ -494,15 +497,17 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     "solve_shared" and "matvec" (W <= 16) one factorization and ``kc`` of
     its right-hand sides.  ``buf_len`` is the length of the
     schedule's int32 CSR buffer, copied to shared memory.  Tiles are padded
-    to ``tile_width`` of the schedule's width class.  Raises ValueError for
-    a CTA over the 227 KB it can have."""
+    to ``tile_width`` of the schedule's width class (the 17..32 class: each
+    node's real rows, ``_real_sizes``).  Raises ValueError for a CTA over
+    the 227 KB it can have."""
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
-    TW = tile_width(sched.width)
-    NGROUPS = WIDTH_CLASSES[width_class(sched.width)][1]
+    cls = width_class(sched.width)
+    TW = 0 if cls == "w32" else tile_width(sched.width)
+    NGROUPS = WIDTH_CLASSES[cls][1]
     N, S, WW, TILE = sched.n_nodes, sched.n_slots, sched.width**2, TW * TW
-    if kernel in ("factorize", "solve") and width_class(sched.width) == "w32":
+    if kernel in ("factorize", "solve") and cls == "w32":
         sizes = _real_sizes(sched, kernel, elem, buf_len)
     elif kernel == "factorize":
         K = _max_nodes(sched)
@@ -515,7 +520,7 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
             # the 33..72 class's pivot search (2 x 4 warp winners and keys)
             # and its two swapped rows
             "red": (8 * elem + 32 + 2 * sched.width * elem)
-            if width_class(sched.width) == "w72" else 0,
+            if cls == "w72" else 0,
             "prow": K * TW * 4,  # their PS row sources
             "si": buf_len * 4,  # the schedule
         }

@@ -16,9 +16,9 @@ KKTs of humanoid, walker and snake (chip_smoke.model_kkt at B=2):
     the padded ones, bitwise, on the real part.
 And on the host: each slot's place (ldu_cuda._csr slot_off, slot_rc)
 holds its real rows, the places tile the staged blocks without overlap,
-the level tasks cover each X column and target row once, and the shared
-memory a lane takes in float32 and float64 (the numbers PERF.md quotes).  The kernels themselves run only on a card
-(tests/test_torch_cuda.py).
+and the level tasks cover each X column and target row once (the shared
+memory a lane takes: tests/test_torch_zoo_ldu.py::test_shared_memory_bytes).
+The kernels themselves run only on a card (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -172,26 +172,3 @@ def test_real_width_schedule_places(name):
         for j, e in enumerate(a[ed]):
             s, o = int(a[sl][e]), int(a[ot][e])
             assert rec("fin_rec" if fwd else "bin_rec", j, 3) == [off[s] - off[N], o * W, nw[o]]
-
-
-# one lane's shared memory in the 17..32 class, (factorize, solve) bytes
-REAL_SMEM = {
-    ("humanoid", torch.float32): (94672, 97504),
-    ("humanoid", torch.float64): (177648, 183664),
-    ("walker", torch.float32): (102208, 101888),
-    ("walker", torch.float64): (194736, 194224),
-}
-
-
-@pytest.mark.parametrize("name, dtype", list(REAL_SMEM),
-                         ids=[f"{n}-{str(d)[6:]}" for n, d in REAL_SMEM])
-def test_real_width_shared_memory(name, dtype):
-    """A lane's shared memory at real widths: humanoid's fits a CTA in
-    float64 too (its padded lane took 448,432 bytes), every array 16-byte
-    aligned, in the order of the C structs."""
-    sched = build_schedule(models.get_mechanism(name, device="cpu").topo)
-    for kernel, want in zip(("factorize", "solve"), REAL_SMEM[name, dtype]):
-        layout = L.smem_layout(sched, kernel, dtype)
-        assert layout["bytes"] == want <= L.SMEM_LIMIT
-        fields = [f for f, _ in L._LAYOUT_STRUCTS[kernel]._fields_]
-        assert list(layout) == fields and all(layout[f] % 16 == 0 for f in fields)

@@ -229,11 +229,14 @@ def test_wide_class_lu_matches_blu_factor(W, n):
 
 
 def test_width_classes():
-    """Each width's class and padded tile (csrc/ldu.cu ldu_tile)."""
+    """Each width's class and padded tile (csrc/ldu.cu ldu_tile); the 17..32
+    class has none (each level takes its own)."""
     assert [L.width_class(W) for W in (1, 16, 17, 32, 33, 72)] == [
         "w16", "w16", "w32", "w32", "w72", "w72"]
-    assert [L.tile_width(W) for W in (6, 14, 16, 17, 22, 24, 25, 32, 33, 70, 72)] == [
-        16, 16, 16, 24, 24, 24, 32, 32, 33, 70, 72]
+    assert [L.tile_width(W) for W in (6, 14, 16, 33, 70, 72)] == [16, 16, 16, 33, 70, 72]
+    for W in (17, 22, 24, 25, 32):
+        with pytest.raises(ValueError, match="no single tile"):
+            L.tile_width(W)
     with pytest.raises(ValueError, match="MAXW"):
         L.tile_width(73)
 
@@ -245,8 +248,12 @@ SMEM = {
     ("walker", torch.float32): (102208, 101888),
     ("block", torch.float32): (119256, 82232),
     ("snake", torch.float32): (31312, 24896),
+    ("hopper", torch.float32): (55264, 55552),
+    ("twister", torch.float32): (85520, 73504),
     ("humanoid", torch.float64): (177648, 183664),
     ("walker", torch.float64): (194736, 194224),
+    ("snake", torch.float64): (60192, 47520),
+    ("hopper", torch.float64): (105152, 105792),
     ("block", torch.float64): (None, 163712),
 }
 
@@ -254,9 +261,10 @@ SMEM = {
 @pytest.mark.parametrize("name, dtype", list(SMEM), ids=[f"{n}-{str(d)[6:]}" for n, d in SMEM])
 def test_shared_memory_bytes(name, dtype):
     """A lane's shared memory in each class (17..32 at real widths, so that
-    humanoid fits in float64 too), and the ValueError, with the bytes, of a
-    lane over the limit: such a lane never reaches a kernel, and never the
-    plain version on a card."""
+    humanoid fits in float64 too: its padded lane took 448,432 bytes; every
+    array 16-byte aligned for its cp.async copies), and the ValueError,
+    with the bytes, of a lane over the limit: such a lane never reaches a
+    kernel, and never the plain version on a card."""
     sched = model_kkt(name, torch.float64, lanes=1)[0]
     for kernel, want in zip(("factorize", "solve"), SMEM[name, dtype]):
         if want is None:
@@ -268,6 +276,8 @@ def test_shared_memory_bytes(name, dtype):
             fields = [f for f, _ in L._LAYOUT_STRUCTS[kernel]._fields_]
             assert list(layout) == fields
             assert [layout[f] for f in fields] == sorted(layout.values())
+            if L.width_class(sched.width) == "w32":
+                assert all(layout[f] % 16 == 0 for f in fields)
 
 
 def test_wrappers_take_plain_version_on_cpu_at_any_width():
