@@ -52,10 +52,10 @@ Phases, each printed as one JSON line with elapsed seconds:
              plain versions, with times and bounds, then ZOO_K timed steps
              with success, Newton iterations, rescued lanes, steps/s and
              the launches of each kernel of the class; then (zoo_kkt)
-             humanoid's KKT in float64 (its lane fits a CTA only at the
-             17–32 kernels' real widths) and twister's in float32 through
-             their class's kernels against the plain versions, block LUs
-             bitwise, with times and both bounds.
+             humanoid's and block's KKTs in float64 (their lanes fit a CTA
+             only at the factorize's real widths) and twister's in float32
+             through their class's kernels against the plain versions,
+             block LUs bitwise, with times and both bounds.
 Then one {"kernels": [...]} line (a row per kernel and width class, the
 17–32 rows on humanoid's KKT and again on walker's (<kernel>_w17_32_walker),
 and the rows solve_shared and matvec_shared of k = 54 right-hand sides a
@@ -109,10 +109,10 @@ CLASS_NAME = {"w16": "", "w32": "_w17_32", "w72": "_w33_72"}
 # further models whose KKT times their class's kernels, with rows of their
 # own (<kernel><class>_<model>): walker's nodes are 14 wide, humanoid's 6
 ROW_MODELS = {"walker": "w32"}
-# KKTs the zoo phase also holds to the plain versions: humanoid's lane in
-# float64 (it fits a CTA only at real widths), twister (W=22, not in
-# bench_zoo's models)
-ZOO_KKT_EXTRA = (("humanoid", "float64"), ("twister", "float32"))
+# KKTs the zoo phase also holds to the plain versions: humanoid's and
+# block's lanes in float64 (they fit a CTA only at real widths), twister
+# (W=22, not in bench_zoo's models)
+ZOO_KKT_EXTRA = (("humanoid", "float64"), ("block", "float64"), ("twister", "float32"))
 # float32 linearize on the card against the plain float64 one on the CPU,
 # max(|ΔA|, |ΔB|) / max(1, |A|∞) at knots of the controller's rollout: the
 # same comparison with the float32 plain path on the CPU gave at most
@@ -271,8 +271,8 @@ def isolated_blocks(sched, kind, seed, lanes, device):
     diagonal block from swap_blocks (the seed plus the node) and every edge
     block zero, so that each node's block is factored as made (its Schur
     updates subtract exact zeros).  A block's real width is its level's
-    (the width the W ≤ 16 and 33–72 kernels pivot to), and in the 17–32
-    class, whose kernels factor each node at its own width and take its
+    (the width the W ≤ 16 kernels pivot to), and in the 17–32 and 33–72
+    classes, whose kernels factor each node at its own width and take its
     pad as the assembler makes it (identity), the node's."""
     import numpy as np
     import torch
@@ -280,7 +280,7 @@ def isolated_blocks(sched, kind, seed, lanes, device):
     from dojo_tpu_torch.ldu_cuda import width_class
 
     W = sched.width
-    own = width_class(W) == "w32"
+    own = width_class(W) != "w16"
     blocks = np.zeros((lanes, sched.n_slots, W, W), dtype=np.float32)
     for lv in sched.levels:
         for nd in lv.nodes:
@@ -310,8 +310,8 @@ def lu_vs_plain(sched, fb, lu, ps):
     factored them (fb's slots 0..N-1), level by level at its real width:
     the arithmetic row swap and the Schur update rounded as
     ldu.schur_fma (in float32 dojo_tpu's blu_factor).  Float32 for every
-    width class; float64 for the 17..32 class, whose kernels round the
-    float64 update as schur_fma does.  Returns a dict: blocks; ``differ``,
+    width class; float64 for the 17..32 and 33..72 classes, whose kernels
+    round the float64 update as schur_fma does.  Returns a dict: blocks; ``differ``,
     the blocks whose LU or
     PS differ from the plain one's in any bit; ``ulps``, the most ulps an
     LU entry lies from the plain one's; ``floored``, the blocks whose
@@ -422,7 +422,7 @@ def check_kernels(ds, blocks, rhs, what):
       1e-4 of |PS·D| (float64: 1e-12); each block LU bitwise equal to the
       plain one's on the blocks the kernel factored (lu_vs_plain: the
       arithmetic row swap and the Schur update rounded as ldu.schur_fma;
-      float64 in the 17..32 class only);
+      float64 in the 17..32 and 33..72 classes only);
     - the solve alone, unrefined, on the kernel's factors (bitwise the
       plain ones') against the plain solve on the same factors: to
       max(2e-5, 4·e) of its scale, e the plain float32 solve's own error
@@ -439,8 +439,9 @@ def check_kernels(ds, blocks, rhs, what):
     from dojo_tpu_torch import ldu, ldu_cuda as L
 
     f64 = blocks.dtype == torch.float64
-    check(not f64 or L.width_class(ds.sched.width) == "w32",
-          f"{what}: float64 block LUs are bitwise the plain ones' in the 17..32 class only")
+    check(not f64 or L.width_class(ds.sched.width) != "w16",
+          f"{what}: float64 block LUs are bitwise the plain ones' in the real-width classes "
+          "(17..72) only")
     tol_fb, tol_lu, tol_refined = (1e-12, 1e-12, 1e-10) if f64 else (2e-5, 1e-4, 2e-5)
     rel = lambda a, b, scale: (a - b).abs().max().item() / scale
     limits = {}

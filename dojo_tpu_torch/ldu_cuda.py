@@ -9,12 +9,14 @@ fallback.
 
 The kernels come in three width classes (``WIDTH_CLASSES``), each a kernel
 of its own picked from the schedule's block width W: W <= 16 (a half-warp
-per block, tiles padded to 16), 17..32 (factorize and solve at each node's
-real width: a level's tile is its widest node rounded up to 8, 16, 24 or
-32, groups of 8 or 16 lanes or a warp per node, blocks staged at their
-real size; their input blocks' pad must be the assembler's, zero with
-identity on the diagonal blocks) and 33..72 (the whole CTA per block, a
-thread per row, tiles of W).  Each wrapper counts its kernel launches in
+per block, tiles padded to 16), 17..32 (factorize, solve and matvec at
+each node's real width: a level's tile is its widest node rounded up to 8,
+16, 24 or 32, groups of 8 or 16 lanes or a warp per node, blocks staged at
+their real size) and 33..72 (the factorize at each node's real width too,
+a node wider than 32 factored by the whole CTA; the solve and the matvec
+a thread per row of W, tiles of W).  The real-width kernels take the
+input blocks' pad as the assembler makes it: zero, identity on the
+diagonal blocks.  Each wrapper counts its kernel launches in
 ``<wrapper>.launches`` (a plain integer, all classes) and per class in
 ``<wrapper>.class_launches``.
 
@@ -79,7 +81,7 @@ _ARRAYS = (
     "fwd_ai", "fwd_i", "fwd_out", "fin_ptr", "fin_e",
     "bwd_ia", "bwd_a", "bin_ptr", "bin_e",
     "row_ptr", "row_slot", "slot_b",
-    # the 17..32 class's real widths (empty for the other classes)
+    # the real widths of the 17..32 and 33..72 classes (empty for W <= 16)
     "level_tw", "node_w", "slot_rc", "slot_off", "node_tile", "node_tvec", "pair_rec", "xtask_ptr",
     "xtask",
     "tgt_rec", "upd_rec", "stask_ptr", "stask", "node_lu", "node_vec", "fin_rec", "bin_rec",
@@ -98,7 +100,7 @@ class _Sched(ctypes.Structure):
 
 class _FactLayout(ctypes.Structure):  # C struct FactLayout (see smem_layout)
     _fields_ = [(n, ctypes.c_int)
-                for n in ("fb", "lu", "x", "rd", "psc", "red", "prow", "si", "bytes")]
+                for n in ("fb", "lu", "x", "rd", "psc", "prow", "si", "bytes")]
 
 
 class _SolveLayout(ctypes.Structure):  # C struct SolveLayout (see smem_layout)
@@ -273,7 +275,7 @@ def _csr(sched: Schedule) -> dict:
         "row_slot": row_slot,
         "slot_b": slot_b,
     }
-    real = _real_widths(sched) if 16 < sched.width <= 32 else {}
+    real = _real_widths(sched) if sched.width > 16 else {}
     arrays.update({k: real.get(k, []) for k in _ARRAYS[_ARRAYS.index("level_tw"):]})
     # the kernels keep diagonal blocks in slots 0..N-1 and stage the solve's
     # edge blocks as the slot range N..S-1
@@ -285,26 +287,38 @@ def _csr(sched: Schedule) -> dict:
 
 
 def level_tile(w: int) -> int:
-    """The tile a level of real width w (<= 32) works at in the 17..32
-    class (csrc/ldu.cu level_tile): w rounded up to 8, 16, 24 or 32; its
-    groups are that many lanes up to 16, a warp above."""
-    return 8 if w <= 8 else 16 if w <= 16 else 24 if w <= 24 else 32
+    """The tile a factorize level of real width w works at in the real-width
+    classes: for w <= 32 w rounded up to 8, 16, 24 or 32 (csrc/ldu.cu
+    level_tile; its groups are that many lanes up to 16, a warp above);
+    above 32 (a wide level of the 33..72 class) w rounded up to odd, the
+    row stride of its LU (cta_lu)."""
+    return 8 if w <= 8 else 16 if w <= 16 else 24 if w <= 24 else 32 if w <= 32 else w | 1
 
 
 ROW_CHUNK = 8  # rows of a target a Schur task of the 17..32 class forms (csrc/ldu.cu SROWS)
 
 
+def wide_scratch(n: int, ld: int) -> int:
+    """The scratch of a 33..72 CTA LU of width n at row stride ld, in
+    elements (csrc/ldu.cu cta_lu): a ping-pong pair of n x ld arrays of
+    rows, and two sets of the 8 warps' candidates' values and rows."""
+    return 2 * n * ld + 32
+
+
 def level_tiles(sched: Schedule) -> list:
-    """The tile each level of the 17..32 factorize works at: its
-    level_tile, unless the tiles would switch more than once along the
-    levels (snake, twister: 24, 8, 24, 8, ...), where every level takes the
-    widest.  Each tile is its own code, and a level that switches back runs
-    it cold: on those schedules that cost the factorize more than the
-    narrow levels save; the solve, whose code a tile is small, keeps each
-    level's own (PERF.md §6)."""
+    """The tile each level of the real-width factorize works at: its
+    level_tile, unless the tiles of the levels up to 32 wide would switch
+    more than once along them (snake, twister: 24, 8, 24, 8, ...), where
+    each of those takes their widest.  Each tile is its own code, and a
+    level that switches back runs it cold: on those schedules that cost the
+    factorize more than the narrow levels save; the solve, whose code a tile
+    is small, keeps each level's own (PERF.md §6).  A wide level (over 32)
+    keeps its own."""
     tiles = [level_tile(int(lv.real_w)) for lv in sched.levels]
-    switches = sum(a != b for a, b in zip(tiles, tiles[1:]))
-    return tiles if switches <= 1 else [max(tiles)] * len(tiles)
+    narrow = [t for t in tiles if t <= 32]
+    if sum(a != b for a, b in zip(narrow, narrow[1:])) <= 1:
+        return tiles
+    return [t if t > 32 else max(narrow) for t in tiles]
 
 
 def _round4(n):
@@ -312,9 +326,10 @@ def _round4(n):
 
 
 def _real_widths(sched: Schedule) -> dict:
-    """The 17..32 class's arrays, at each node's real width (struct Sched,
-    csrc/ldu.cu "factorize and solve, 17..32"): ``level_tw``, the tile
-    each factorize level works at (level_tiles).
+    """The arrays of the 17..32 and 33..72 classes, at each node's real
+    width (struct Sched, csrc/ldu.cu "factorize and solve, 17..32" and
+    "factorize, 33..72"): ``level_tw``, the tile each factorize level works
+    at (level_tiles; over 32 a wide level).
 
     Every slot (a, b) has its real widths in ``slot_rc`` (n_a << 8 | n_b)
     and a place in shared memory for its n_a real rows, W wide as in the
@@ -326,11 +341,12 @@ def _real_widths(sched: Schedule) -> dict:
     longer, so that the tiles of a level's nodes start in different banks)
     and its reciprocals and PS at ``node_tvec``; the solve stages each
     node's n real rows of LU and PS at ``node_lu`` and keeps its vectors of
-    n at ``node_vec`` (all with the total last).  Per level, its tasks: ``xtask`` (an X column:
-    pair within the level << 5 | column) and ``stask`` (up to ROW_CHUNK
-    rows of a target's column: target within the level << 7 | row chunk
-    << 5 | column), with their per-level offsets ``xtask_ptr`` /
-    ``stask_ptr``.  What a task reads comes as records, so that it takes
+    n at ``node_vec`` (all with the total last; the matvec finds a real row's
+    node there).  Per level, its tasks: ``xtask`` (an X column: pair within
+    the level << 7 | column) and ``stask`` (ROW_CHUNK rows of a target's
+    column from a first row, or at a wide level one row: target within the
+    level << 14 | first row << 7 | column), with their per-level offsets
+    ``xtask_ptr`` / ``stask_ptr``.  What a task reads comes as records, so that it takes
     few dependent loads: ``pair_rec`` (per pair: E_{i,b}'s place, n_i << 8
     | n_b, node i's tile and vectors, the pair's X tile in its level's X
     tiles), ``tgt_rec`` (per target: its place and widths), ``upd_rec``
@@ -361,16 +377,19 @@ def _real_widths(sched: Schedule) -> dict:
             xoff[i, ib] = off
             pair_rec += [slot_off[ib], nw[i] << 8 | nw[slot_b[ib]], node_tile[i], node_tvec[i], off]
             off += _round4(tw * int(nw[slot_b[ib]]))
-            xtask += [p << 5 | c for c in range(nw[slot_b[ib]])]
+            xtask += [p << 7 | c for c in range(nw[slot_b[ib]])]
         tgts, _, grouped = _grouped(level.upd_tgt.tolist())
+        rows = 1 if tw > 32 else ROW_CHUNK
         for t, tgt in enumerate(tgts):
             tgt_rec += [slot_off[tgt], nw[slot_a[tgt]] << 8 | nw[slot_b[tgt]]]
-            stask += [t << 7 | r << 5 | c for r in range(-(-int(nw[slot_a[tgt]]) // ROW_CHUNK))
+            stask += [t << 14 | r << 7 | c for r in range(0, int(nw[slot_a[tgt]]), rows)
                       for c in range(nw[slot_b[tgt]])]
         for k in grouped:  # the updates in tgt_upd's order
             ai, i, ib = int(level.upd_ai[k]), int(level.upd_inv[k]), int(level.upd_ib[k])
             upd_rec += [slot_off[ai], nw[i], xoff[i, ib]]
         x_len = max(x_len, off)
+        if tw > 32:  # cta_lu's ping-pong rows and candidates lie in the X tiles' space
+            x_len = max(x_len, wide_scratch(int(level.real_w), tw))
         xtask_ptr.append(len(xtask))
         stask_ptr.append(len(stask))
     e0 = slot_off[N]
@@ -398,7 +417,8 @@ def _real_widths(sched: Schedule) -> dict:
         "node_vec": np.cumsum([0] + nw.tolist()),
         "fin_rec": edge_rec(fwd, _grouped(fwd_a, N)[2]),
         "bin_rec": edge_rec(bwd, _grouped(bwd_i, N)[2]),
-        "x_len": x_len,  # the most elements a level's X tiles take (not in the buffer)
+        "x_len": x_len,  # the most elements a level's X tiles (or a wide LU's scratch) take
+                         # (not in the buffer)
     }
 
 
@@ -424,18 +444,19 @@ def _chunk(k: int, fixed: int, per_col: int, budget: int, most: int) -> int:
 
 def shared_chunk(sched: Schedule, kernel: str, dtype, k: int,
                  buf_len: int | None = None) -> int:
-    """The columns a CTA of the W <= 16 kernels that share a lane's factors
-    or blocks among its k right-hand sides takes of them: for ``kernel``
-    "solve_shared" at most SHARED_MAXKC (a lane of a warp each, in one CTA
-    an SM), for "matvec" as many as fit two CTAs an SM where a lane's
-    blocks leave room for a vector, else one.  Raises ValueError where not
-    one column fits beside the factors."""
-    if width_class(sched.width) != "w16":
-        raise ValueError("the shared-factor kernels take W <= 16")
+    """The columns a CTA of the kernels that share a lane's factors or
+    blocks among its k right-hand sides takes of them: for ``kernel``
+    "solve_shared" (W <= 16) at most SHARED_MAXKC (a lane of a warp each,
+    in one CTA an SM), for "matvec" (W <= 32) as many as fit two CTAs an SM
+    where a lane's blocks leave room for a vector, else one.  Raises
+    ValueError where not one column fits beside the factors."""
+    cls = width_class(sched.width)
+    if cls != "w16" and (kernel != "matvec" or cls != "w32"):
+        raise ValueError(f"{kernel}: the shared-factor kernels take W <= 16 (the matvec W <= 32)")
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
-    per_vec = sched.n_nodes * 16 * elem
+    per_vec = sched.n_nodes * (16 if cls == "w16" else sched.width) * elem
     fixed = smem_layout(sched, kernel, dtype, buf_len, kc=0)["bytes"]
     if kernel == "solve_shared":  # b and t: two node vectors a column
         kc = _chunk(k, fixed, 2 * per_vec, SMEM_LIMIT, SHARED_MAXKC)
@@ -450,12 +471,15 @@ def shared_chunk(sched: Schedule, kernel: str, dtype, k: int,
     return kc
 
 
-def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int) -> dict:
-    """The 17..32 class's shared-memory arrays (bytes), at real widths
-    (``_real_widths``): the factorize stages every slot's real rows, and
-    keeps every node's LU tile, reciprocals and PS in compact form and one
-    level's X tiles; the solve stages the edge blocks' real rows, each
-    node's real rows of LU and PS, and its node vectors at stride W."""
+def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int, kc: int = 1) -> dict:
+    """The real-width kernels' shared-memory arrays (bytes), at real widths
+    (``_real_widths``): the factorize (17..72) stages every slot's real
+    rows, and keeps every node's LU tile, reciprocals and PS in compact form
+    and one level's X tiles (or a wide node's two arrays of LU rows); the
+    solve (17..32) stages the edge blocks' real rows, each node's real rows
+    of LU and PS, and its node vectors at stride W; the matvec (17..32)
+    stages every slot's real rows, ``kc`` node vectors at stride W and
+    the schedule's index arrays it reads."""
     real = _real_widths(sched)
     off, N = real["slot_off"], sched.n_nodes
     a16 = lambda nbytes: -(-nbytes // 16) * 16  # each array 16-byte aligned
@@ -467,11 +491,17 @@ def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int) -> dict:
             "x": a16(real["x_len"] * elem),  # a level's X tiles
             "rd": a16(tvec * elem),  # 1 / diag(U) of every node
             "psc": a16(tvec * elem),  # their PS row scales
-            "red": 0,
             "prow": a16(tvec * 4),  # their PS row sources
             "si": a16(buf_len * 4),  # the schedule
         }
     W = sched.width
+    if kernel == "matvec":
+        return {
+            "blocks": a16(int(off[-1]) * elem),  # every slot's real rows
+            "x": kc * N * W * elem,  # the chunk's vectors
+            # row_ptr, row_slot, slot_b, slot_off, slot_rc, node_vec, node_w
+            "idx": (4 * sched.n_slots + 3 * N + 3) * 4,
+        }
     nlu, nvec = int(real["node_lu"][-1]), int(real["node_vec"][-1])
     return {
         "e": a16(int(off[-1] - off[N]) * elem),  # the edge blocks' real rows (slots N..S-1)
@@ -494,12 +524,12 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     array (csrc/ldu.cu FactLayout / SolveLayout; for the matvecs, the
     vectors' offset ``x``), and the CTA's dynamic shared memory in all
     (``bytes``).  "factorize" and "solve" take one lane (and one vector);
-    "solve_shared" and "matvec" (W <= 16) one factorization and ``kc`` of
-    its right-hand sides.  ``buf_len`` is the length of the
+    "solve_shared" (W <= 16) and "matvec" (W <= 32) one factorization and
+    ``kc`` of its right-hand sides.  ``buf_len`` is the length of the
     schedule's int32 CSR buffer, copied to shared memory.  Tiles are padded
-    to ``tile_width`` of the schedule's width class (the 17..32 class: each
-    node's real rows, ``_real_sizes``).  Raises ValueError for a CTA over
-    the 227 KB it can have."""
+    to ``tile_width`` of the schedule's width class (at each node's real
+    rows, ``_real_sizes``: the 17..32 class's kernels and the 33..72
+    factorize).  Raises ValueError for a CTA over the 227 KB it can have."""
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
@@ -507,8 +537,9 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     TW = 0 if cls == "w32" else tile_width(sched.width)
     NGROUPS = WIDTH_CLASSES[cls][1]
     N, S, WW, TILE = sched.n_nodes, sched.n_slots, sched.width**2, TW * TW
-    if kernel in ("factorize", "solve") and cls == "w32":
-        sizes = _real_sizes(sched, kernel, elem, buf_len)
+    if (kernel in ("solve", "matvec") and cls == "w32") or (kernel == "factorize"
+                                                             and cls != "w16"):
+        sizes = _real_sizes(sched, kernel, elem, buf_len, kc)
     elif kernel == "factorize":
         K = _max_nodes(sched)
         sizes = {
@@ -517,10 +548,6 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
             "x": _max_pairs(sched) * TILE * elem,  # X tiles of one level's pairs
             "rd": K * TW * elem,  # 1 / diag(U) of those nodes
             "psc": K * TW * elem,  # their PS row scales
-            # the 33..72 class's pivot search (2 x 4 warp winners and keys)
-            # and its two swapped rows
-            "red": (8 * elem + 32 + 2 * sched.width * elem)
-            if cls == "w72" else 0,
             "prow": K * TW * 4,  # their PS row sources
             "si": buf_len * 4,  # the schedule
         }
@@ -555,8 +582,8 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
             "si": buf_len * 4,  # the schedule
         }
     elif kernel == "matvec":
-        if width_class(sched.width) != "w16":
-            raise ValueError("the staged matvec takes W <= 16")
+        if cls != "w16":
+            raise ValueError("the staged matvec takes W <= 32")
         sizes = {
             "blocks": -(-S * WW * elem // 16) * 16,  # the lane's blocks
             "x": kc * N * TW * elem,  # the chunk's vectors, padded to 16 a node
@@ -681,13 +708,16 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
     run at once, a half-warp per node with its rows in registers, pivoting
     by shuffles without moving rows; X = D_i⁻¹E_{i,b} once per distinct
     pair, then each target block reduced by one half-warp in list order.
-    Three CTA barriers per level.  17 <= W <= 32: at each node's real
-    width (blocks staged compactly, a level's LUs in groups of 8 or 16
-    lanes or a warp, X a thread per column, the targets a thread per
-    column and 8 rows, LU and PS written at the end), the pad of the
-    blocks taken as the assembler makes it; 33 <= W <= 72: the CTA on one
-    node at a time, a thread per row, two CTA barriers per pivot.  Rows
-    swap arithmetically, as in ldu.blu_factor."""
+    Three CTA barriers per level.  17 <= W <= 72: at each node's real
+    width (each block staged as its real rows, a level's LUs in groups of
+    8 or 16 lanes or a warp, X a thread per column, the targets a thread
+    per column and 8 rows, LU and PS written at the end), the pad of the
+    blocks taken as the assembler makes it (zero, identity on the diagonal
+    blocks); 33 <= W <= 72, a node wider than 32: its block LU by the whole
+    CTA (its trailing submatrix in the registers of 256 threads, each
+    warp's pivot candidate taken from them, one CTA barrier per pivot), X
+    a warp per column, the targets a thread per entry.  Rows swap arithmetically, as in
+    ldu.blu_factor; every block LU is ldu.blu_factor's bitwise."""
     if not _plain_or_cuda(blocks):
         return ldu.factorize(ds.plan, blocks)
     suffix, B, dev = _cuda_args(ds, blocks=blocks)
@@ -749,14 +779,18 @@ def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor,
     Bound on the card: reading the (B, S, W, W) blocks once (bytes).
     Design: W <= 16, one CTA per lane and chunk of its k vectors, the
     lane's blocks and the chunk's vectors staged once in shared memory,
-    coalesced, a thread an output row for up to 6 vectors; wider blocks,
-    one CTA per vector, x in shared memory, a thread an output row.  A row
+    coalesced, a thread an output row for up to 6 vectors; 17 <= W <= 32,
+    the same with each block staged as its real rows, a thread a real
+    output row of one vector over its real terms, the blocks' pad taken as
+    the assembler makes it (zero, identity on the diagonal blocks: a pad
+    row of the output is the vector's own entry); 33 <= W <= 72, one CTA
+    per vector, x in shared memory, a thread an output row of W.  A row
     sums its node's slots in slot order."""
     if not _plain_or_cuda(x):
         return ldu.matvec(ds.plan, blocks, x, rhs_per_fact)
     suffix, B, dev = _cuda_args(ds, rhs_per_fact, blocks=blocks, x=x)
     k, kc, x_off, smem = rhs_per_fact, 0, 0, 0
-    if width_class(ds.sched.width) == "w16":
+    if width_class(ds.sched.width) in ("w16", "w32"):
         kc = ds.chunk("matvec", x.dtype, k)
         layout = ds.layout("matvec", x.dtype, kc)
         x_off, smem = layout["x"], layout["bytes"]

@@ -11,8 +11,9 @@ events behind a spin kernel) of
   - factorize, solve and matvec on humanoid's and walker's (W=22) and
     block's (W=70) KKT at B=64, bench_zoo's lanes, and factorize and solve
     for one lane alone;
-  - factorize and solve on humanoid's and walker's KKT in float64 at B=64
-    and for one lane (null where the checkout's lane does not fit a CTA);
+  - factorize and solve on humanoid's, walker's and block's KKT in float64
+    at B=64 and for one lane (null where the checkout's lane does not fit
+    a CTA);
   - factorize and solve on the other 17..32 models' KKTs (snake, hopper,
     twister) at B=64;
   - solve and matvec with k=54 right-hand sides a factorization on the
@@ -63,7 +64,7 @@ def main():
             "solve": C.time_ms(lambda: L.solve(ds, fact, rhs), args.reps),
             "matvec": C.time_ms(lambda: L.matvec(ds, blocks, x), args.reps),
         }
-        if name in ("humanoid", "walker"):
+        if name in ("humanoid", "walker", "block"):
             for dtype in (f32, torch.float64):
                 m = mech if dtype == f32 else models.get_mechanism(name, device=dev).cast(dtype)
                 for b in (1, lanes):

@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Split the 17..32 factorize and solve kernels' time by phase on a card.
+"""Split the real-width factorize and solve kernels' time by phase on a card.
 
-    python3 scripts/ldu_phase_split.py [--models humanoid,walker] [--lanes 1,64] [--out FILE]
+    python3 scripts/ldu_phase_split.py [--models humanoid,walker,block] [--lanes 1,64]
+                                       [--out FILE]
 
 Builds csrc/ldu.cu with -DLDU_PHASES, in which lane 0 of each warp of the
-17..32 kernels writes clock64() at every phase boundary, launches that
-build's factorize and solve on each model's KKT (chip_smoke.model_kkt,
-float32) at each batch size, and prints one JSON line: the card's name and
-power limit (nvidia-smi), the SM clock (cycles per second of
-torch.cuda._sleep against CUDA events), and per model and batch, in µs
-(the mean over the CTAs):
+17..32 kernels and of the 33..72 factorize writes clock64() at every phase
+boundary, launches that build's factorize and (17..32) solve on each
+model's KKT (chip_smoke.model_kkt, float32) at each batch size, and prints
+one JSON line: the card's name and power limit (nvidia-smi), the SM clock
+(cycles per second of torch.cuda._sleep against CUDA events), and per
+model and batch, in µs (the mean over the CTAs):
   factorize — staging (and its steps: the slots' places read, the
-              copies issued, the copies arrived); per level the block LUs,
-              the X columns, the Schur tasks, and the wait at each of the
-              three CTA barriers; write-back of fb, LU and PS (fb alone);
+              copies issued, the copies arrived; and at a 33..72 CTA LU
+              one pivot, csrc/ldu.cu PROBE_K, split: the pivot picked,
+              rows k and p loaded, the rows updated, the next candidate
+              stored, the barrier); per level the block LUs
+              (at a 33..72 level over 32 wide, the CTA's LUs, whose
+              barriers are inside), the X columns, the Schur tasks, and
+              the wait at each of the three CTA barriers; write-back of
+              fb, LU and PS (fb alone);
   solve     — staging (with PS's compact form, and the steps as above);
               per level pass the edge row dots, the node solves and the
               barrier; write-back.
@@ -101,7 +107,7 @@ def split(st, L_, us, kernel):
     out["total"] = mean(end - start)
     # staging's steps: the places read, the copies issued, the copies
     # arrived, (solve) PS in compact form; (factorize) fb written
-    sub = st.shape[1] - 5
+    sub = st.shape[1] - 11
     steps = [last(st, sub + k) for k in range(3)]
     out["staging_steps"] = {"places": mean(steps[0] - start), "issue": mean(steps[1] - steps[0]),
                             "arrive": mean(steps[2] - steps[1])}
@@ -109,6 +115,10 @@ def split(st, L_, us, kernel):
         out["staging_steps"]["ps_compact"] = mean(last(st, sub + 3) - steps[2])
     else:
         out["write_back_fb"] = mean(last(st, sub + 4) - prev)
+        probe = [last(st, sub + 5 + k) for k in range(6)]
+        if bool((probe[0] > 0).all()):  # a 33..72 CTA LU's pivot PROBE_K, warp by warp's last
+            names = ("pick", "rows", "update", "candidate", "barrier")
+            out["pivot_probe"] = {nm: mean(b - a) for nm, a, b in zip(names, probe, probe[1:])}
     for k in out["levels"][0]:
         out[f"sum_{k}"] = sum(lv[k] for lv in out["levels"])
     return out
@@ -116,7 +126,7 @@ def split(st, L_, us, kernel):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--models", default="humanoid,walker")
+    ap.add_argument("--models", default="humanoid,walker,block")
     ap.add_argument("--lanes", default="1,64")
     ap.add_argument("--out", help="also write the JSON line to this file")
     args = ap.parse_args()
@@ -135,7 +145,8 @@ def main():
         mech = models.get_mechanism(name, device=dev).cast(f32)
         for B in (int(b) for b in args.lanes.split(",")):
             sched, ds, blocks, rhs = C.model_kkt(mech, models.initialize(mech, name), B, dev)
-            C.check(L.width_class(sched.width) == "w32", f"{name}: not in the 17..32 class")
+            cls = L.width_class(sched.width)
+            C.check(cls in ("w32", "w72"), f"{name}: not in a real-width class")
             fb, lu, ps = (torch.empty_like(t) for t in L.factorize(ds, blocks))
             x = torch.empty_like(rhs)
             stream = lambda: torch.cuda.current_stream().cuda_stream
@@ -153,14 +164,13 @@ def main():
             ref = L.factorize(ds, blocks)
             C.check(all(torch.equal(a, b) for a, b in zip((fb, lu, ps), ref)),
                     f"{name}: the instrumented factorize differs from the plain build's")
-            C.check(torch.equal(x, L.solve(ds, ref, rhs)),
+            C.check(cls == "w72" or torch.equal(x, L.solve(ds, ref, rhs)),
                     f"{name}: the instrumented solve differs from the plain build's")
             nl = len(sched.levels)
             res = {}
-            for kernel, fn, plain_fn in (
-                ("factorize", fact, lambda: L.factorize(ds, blocks)),
-                ("solve", solve, lambda: L.solve(ds, ref, rhs)),
-            ):
+            kernels = (("factorize", fact, lambda: L.factorize(ds, blocks)),
+                       ("solve", solve, lambda: L.solve(ds, ref, rhs)))
+            for kernel, fn, plain_fn in kernels[: 1 if cls == "w72" else 2]:
                 st = stamps_of(fn, buf, B, per_cta)
                 res[kernel] = split(st, nl, us, kernel)
                 res[kernel]["ms_instrumented"] = C.time_ms(fn, 20)

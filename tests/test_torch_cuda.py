@@ -176,7 +176,7 @@ def _check_class(name, dtype, lanes, k=1):
     plain versions, with chip_smoke.check_kernels' limits (factored blocks
     relative to their scale; the solve unrefined on the kernel's factors
     against the plain solve on the same factors, then refined once), and
-    in the 17..32 class every block LU and PS bitwise equal to
+    in the 17..32 and 33..72 classes every block LU and PS bitwise equal to
     ldu.blu_factor's of the block the kernel factored (float32 and
     float64); a lane that does not fit a CTA raises ValueError (never the
     plain version)."""
@@ -197,7 +197,7 @@ def _check_class(name, dtype, lanes, k=1):
     assert float((fact[0] - ref[0]).abs().max()) / float(ref[0].abs().max()) < (
         2e-5 if f32 else 1e-12)
     assert lu_identity_err(*fact, sched.n_nodes) < LU_TOL[dtype]
-    if cls == "w32":
+    if cls != "w16":
         import chip_smoke as C
 
         res = C.lu_vs_plain(sched, *fact)
@@ -231,8 +231,8 @@ def _check_class(name, dtype, lanes, k=1):
 def test_width_classes_match_plain_on_cuda(name, lanes):
     """Each width class (pendulum W=6; snake, hopper, walker, humanoid,
     twister W=22; block W=70) against the plain versions, float32 and
-    float64, odd batches included; block's float64 factorize does not fit
-    a CTA and raises."""
+    float64, odd batches included; block's float64 lane fits a CTA at the
+    factorize's real widths and runs through the kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     for dtype in (torch.float32, torch.float64):
@@ -245,6 +245,35 @@ def test_shared_factor_w17_32_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     _check_class("humanoid", torch.float32, 4, k=54)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 54])
+@pytest.mark.parametrize("name", ["humanoid", "walker"])
+def test_matvec_w17_32_on_cuda(name, k):
+    """The 17..32 matvec (each block staged as its real rows, a thread a
+    real output row) with k vectors a lane against the plain version at
+    an odd B, float32 and float64, within 1e-5·Σ|E||x|; its pad rows are
+    the vectors' own entries, exactly; with k > 1 it is counted in
+    ``shared_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    lanes = 3
+    for dtype in (torch.float32, torch.float64):
+        sched, blocks, _ = model_kkt(name, dtype, "cuda", lanes)
+        ds = L.DeviceSchedule(sched, "cuda")
+        noise = np.random.default_rng(k).standard_normal((lanes * k, sched.n_nodes, sched.width))
+        x = torch.as_tensor(noise, dtype=dtype, device="cuda")
+        L.reset_launches()
+        y = L.matvec(ds, blocks, x, k)
+        torch.cuda.synchronize()
+        assert (L.matvec.class_launches["w32"], L.matvec.shared_launches["w32"]) == (1, int(k > 1))
+        y_ref = ldu.matvec(ds.plan, blocks, x, k)
+        mag = ldu.matvec(ds.plan, blocks.abs(), x.abs(), k)
+        assert bool(((y - y_ref).abs() <= 1e-5 * mag + 1e-30).all())
+        width = torch.as_tensor(np.asarray(sched.node_width), device="cuda")
+        pad = torch.arange(sched.width, device="cuda") >= width[:, None]
+        assert torch.equal(y[:, pad], x[:, pad])
 
 
 # the model whose schedule stands for each width class

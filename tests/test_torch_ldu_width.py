@@ -105,16 +105,18 @@ def test_schur_terms_at_real_width_are_bitwise(factored):
     torch.testing.assert_close(fb, ldu.factorize(plan, blocks)[0], rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", MODELS + ("hopper", "twister"))
+@pytest.mark.parametrize("name", MODELS + ("hopper", "twister", "block"))
 def test_real_width_schedule_places(name):
-    """_csr's real-width arrays: each level's tile (its own, or the widest
-    where the tiles would switch more than once); each slot's place holds
-    its n_a real rows,
+    """_csr's real-width arrays (17..32, and block's W = 70): each level's
+    tile (its own, or where the tiles up to 32 would switch more than once
+    their widest; a level over 32 wide its width rounded up to odd); each
+    slot's place holds its n_a real rows,
     W wide, 16-byte aligned, the places tile the staged blocks in slot
     order without overlap; the nodes' tiles (one element apart) and places
     likewise; each level's tasks cover every column of its X tiles and
-    every row chunk of every column of its targets once, and their records
-    name the blocks and widths of the schedule's lists."""
+    every row chunk (at a wide level every row) of every column of its
+    targets once, and their records name the blocks and widths of the
+    schedule's lists; a wide level's X space holds its LU's scratch."""
     sched = build_schedule(models.get_mechanism(name, device="cpu").topo)
     a = L._csr(sched)
     nw = np.asarray(sched.node_width)
@@ -132,8 +134,14 @@ def test_real_width_schedule_places(name):
     assert (np.diff(a["node_tile"]) == tw * tw + 1).all()
     rec = lambda name, k, size: a[name][size * k : size * (k + 1)].tolist()
     tiles = [L.level_tile(int(lv.real_w)) for lv in sched.levels]
-    switches = sum(x != y for x, y in zip(tiles, tiles[1:]))
-    assert a["level_tw"].tolist() == (tiles if switches <= 1 else [max(tiles)] * len(tiles))
+    assert all(t == (int(lv.real_w) | 1 if lv.real_w > 32 else t)
+               for t, lv in zip(tiles, sched.levels))
+    narrow = [t for t in tiles if t <= 32]
+    if sum(x != y for x, y in zip(narrow, narrow[1:])) > 1:
+        tiles = [t if t > 32 else max(narrow) for t in tiles]
+    assert a["level_tw"].tolist() == tiles
+    assert (name == "block") == any(t > 32 for t in tiles)
+    x_len = L._real_widths(sched)["x_len"]
     for k, lv in enumerate(sched.levels):
         p0, p1 = a["pair_ptr"][k], a["pair_ptr"][k + 1]
         assert (tw[lv.nodes] == a["level_tw"][k]).all()
@@ -147,9 +155,13 @@ def test_real_width_schedule_places(name):
                                               a["node_tvec"][i])
             ends.append((xoff, xoff + tw[i] * nb))
             want |= {(p - p0, c) for c in range(nb)}
-        assert sorted((int(t) >> 5, int(t) & 31) for t in xt) == sorted(want)
+        assert sorted((int(t) >> 7, int(t) & 127) for t in xt) == sorted(want)
         ends.sort()
         assert all(e0 <= s1 for (_, e0), (s1, _) in zip(ends, ends[1:]))
+        assert all(e1 <= x_len for _, e1 in ends)
+        wide = a["level_tw"][k] > 32
+        if wide:
+            assert L.wide_scratch(int(lv.real_w), int(a["level_tw"][k])) <= x_len
         t0, t1 = a["tgt_ptr"][k], a["tgt_ptr"][k + 1]
         st = a["stask"][a["stask_ptr"][k] : a["stask_ptr"][k + 1]]
         want = set()
@@ -162,9 +174,9 @@ def test_real_width_schedule_places(name):
                 assert rec("upd_rec", j, 3) == [off[ai], nw[a["pair_node"][pair]],
                                                 rec("pair_rec", pair, 5)[4]]
             rc = a["slot_rc"][tgt]
-            want |= {(t - t0, r, c) for r in range(-(-(rc >> 8) // L.ROW_CHUNK))
+            want |= {(t - t0, r, c) for r in range(0, rc >> 8, 1 if wide else L.ROW_CHUNK)
                      for c in range(rc & 255)}
-        got = [(int(x) >> 7, (int(x) >> 5) & 3, int(x) & 31) for x in st]
+        got = [(int(x) >> 14, (int(x) >> 7) & 127, int(x) & 127) for x in st]
         assert len(got) == len(set(got)) and set(got) == want
     N, W = sched.n_nodes, sched.width
     for fwd in (True, False):

@@ -143,48 +143,43 @@ def _register_lu(D, n, TW, group, n_loop):
 
 
 def _wide_lu(D, n):
-    """fact_wide's block LU (csrc/ldu.cu wide_lu) in numpy: a thread per row
-    of W rounded up to 32 threads, rows in place; per pivot each warp's
-    winner (largest value, on a tie the lowest key pos * 128 + r), then the
-    warps' winners taken in order, then the arithmetic row swap; each pivot
-    is floored when taken (the kernel also floors it again when LU is
-    stored, which changes nothing)."""
-    W = D.shape[0]
-    nt = -(-W // 32) * 32
-    m = D.copy()
+    """fact_wide's block LU of a node wider than 32 (csrc/ldu.cu cta_lu) in
+    numpy, on the node's real n x n block, entry by entry as the kernel
+    computes it: each of the 8 warps' candidate for pivot k, its rows w,
+    w + 8, ... >= k scanned from the last, a tie keeping the lower row; the
+    pivot the largest candidate, on a tie the lowest row; rows k and p
+    formed arithmetically (Tk + (Tp - Tk) and Tp + (Tk - Tp)) in every
+    column, their multipliers too, the pivot floored, each multiplier a
+    quotient, each trailing entry m - f p (the product rounded apart,
+    float64) once a pivot; PS's rows swapped.  Returns the n x n LU and
+    PS."""
+    m = D[:n, :n].copy()
     rmax = np.abs(m).max(axis=1)
     sc = np.where(rmax > 0, 1.0 / np.where(rmax > 0, rmax, 1.0), 1.0)
     m *= sc[:, None]
-    pos = np.arange(nt)
-    better = lambda o, b: o[0] > b[0] or (o[0] == b[0] and o[1] < b[1])
+    prow, psc = np.arange(n), sc.copy()
     for k in range(n):
-        cand = [((abs(m[r, k]) if r < W and k <= pos[r] < n else -1.0), pos[r] * 128 + r)
-                for r in range(nt)]
-        winners = []
-        for w in range(nt // 32):
-            best = cand[32 * w]
-            for c in cand[32 * w + 1 : 32 * w + 32]:
-                best = c if better(c, best) else best
-            winners.append(best)
-        best = winners[0]
-        for c in winners[1:]:
-            best = c if better(c, best) else best
-        pl, ppos = best[1] % 128, best[1] // 128
-        _swap_rows(m, np.flatnonzero(pos[:W] == k)[0], pl)
-        a = _floor(m[pl, k])
-        for r in range(W):
-            pos[r] = k if r == pl else (ppos if pos[r] == k else pos[r])
-            if pos[r] > k:
-                mult = m[r, k] / a
-                m[r, k + 1 :] -= mult * m[pl, k + 1 :]
-                m[r, k] = mult
-    for r in range(W):
-        if pos[r] < n:
-            m[r, pos[r]] = _floor(m[r, pos[r]])
-    LU, PS = np.empty_like(m), np.zeros_like(m)
-    LU[pos[:W]] = m
-    PS[pos[:W], np.arange(W)] = sc
-    return LU, PS
+        cands = []
+        for w in range(8):
+            v, key = -1.0, w
+            for i in reversed(range(w, n, 8)):
+                if i >= k and abs(m[i, k]) >= v:
+                    v, key = abs(m[i, k]), i
+            cands.append((v, -key))
+        p = -max(cands)[1]
+        tk, tp = m[k].copy(), m[p].copy()
+        if p != k:
+            m[k], m[p] = tk + (tp - tk), tp + (tk - tp)
+            prow[[k, p]], psc[[k, p]] = prow[[p, k]], psc[[p, k]]
+        a = _floor(m[k, k])
+        m[k, k] = a
+        for i in range(k + 1, n):
+            f = m[i, k] / a
+            m[i, k + 1 :] = m[i, k + 1 :] - f * m[k, k + 1 :]
+            m[i, k] = f
+    PS = np.zeros((n, n))
+    PS[np.arange(n), prow] = psc
+    return m, PS
 
 
 def _check_register_lu(W, n, TW, n_loop):
@@ -216,16 +211,22 @@ def test_register_class_lu_pad_pivots(n, n_loop):
     _check_register_lu(22, n, 24, n_loop)
 
 
-@pytest.mark.parametrize("W, n", [(70, 64), (70, 70), (38, 33)])
+@pytest.mark.parametrize("W, n", [(70, 64), (70, 70), (38, 33), (72, 72)])
 def test_wide_class_lu_matches_blu_factor(W, n):
-    """The 33..72 class's block LU against ldu.blu_factor (exact), pivot
-    ties included."""
+    """The 33..72 class's block LU of a node wider than 32, at its real
+    width n, against ldu.blu_factor of the W x W block at width n on the
+    real part (exact), pivot ties included; the pad of ldu.blu_factor's is
+    identity."""
     D = _tied_blocks(W + n, n, W, count=3)
     lu, ps = ldu.blu_factor(torch.as_tensor(D), n)
+    eye = np.eye(W)
     for b in range(D.shape[0]):
         LU, PS = _wide_lu(D[b], n)
-        np.testing.assert_array_equal(LU, lu[b].numpy())
-        np.testing.assert_array_equal(PS, ps[b].numpy())
+        np.testing.assert_array_equal(LU, lu[b, :n, :n].numpy())
+        np.testing.assert_array_equal(PS, ps[b, :n, :n].numpy())
+        for t in (lu, ps):
+            np.testing.assert_array_equal(t[b, n:, n:].numpy(), eye[n:, n:])
+            assert not t[b, :n, n:].any() and not t[b, n:, :n].any()
 
 
 def test_width_classes():
@@ -246,7 +247,7 @@ def test_width_classes():
 SMEM = {
     ("humanoid", torch.float32): (94672, 97504),
     ("walker", torch.float32): (102208, 101888),
-    ("block", torch.float32): (119256, 82232),
+    ("block", torch.float32): (104400, 82588),
     ("snake", torch.float32): (31312, 24896),
     ("hopper", torch.float32): (55264, 55552),
     ("twister", torch.float32): (85520, 73504),
@@ -254,17 +255,19 @@ SMEM = {
     ("walker", torch.float64): (194736, 194224),
     ("snake", torch.float64): (60192, 47520),
     ("hopper", torch.float64): (105152, 105792),
-    ("block", torch.float64): (None, 163712),
+    ("block", torch.float64): (207920, 164068),
 }
 
 
 @pytest.mark.parametrize("name, dtype", list(SMEM), ids=[f"{n}-{str(d)[6:]}" for n, d in SMEM])
 def test_shared_memory_bytes(name, dtype):
     """A lane's shared memory in each class (17..32 at real widths, so that
-    humanoid fits in float64 too: its padded lane took 448,432 bytes; every
-    array 16-byte aligned for its cp.async copies), and the ValueError,
-    with the bytes, of a lane over the limit: such a lane never reaches a
-    kernel, and never the plain version on a card."""
+    humanoid fits in float64 too: its padded lane took 448,432 bytes; the
+    33..72 factorize too, so that block's float64 lane fits: it took
+    over 232,448; every real-width array 16-byte aligned for its cp.async
+    copies), and the ValueError, with the bytes, of a lane over the limit:
+    such a lane never reaches a kernel, and never the plain version on a
+    card."""
     sched = model_kkt(name, torch.float64, lanes=1)[0]
     for kernel, want in zip(("factorize", "solve"), SMEM[name, dtype]):
         if want is None:
@@ -276,8 +279,49 @@ def test_shared_memory_bytes(name, dtype):
             fields = [f for f, _ in L._LAYOUT_STRUCTS[kernel]._fields_]
             assert list(layout) == fields
             assert [layout[f] for f in fields] == sorted(layout.values())
-            if L.width_class(sched.width) == "w32":
+            if L.width_class(sched.width) == "w32" or (kernel, name) == ("factorize", "block"):
                 assert all(layout[f] % 16 == 0 for f in fields)
+
+
+# the 17..32 matvec's CTA: {k: (vectors a CTA takes, its shared memory in
+# bytes)}: the lane's real rows of every slot, W wide, the vectors, then
+# the index arrays the kernel reads
+MATVEC_SMEM = {
+    ("humanoid", torch.float32): {1: (1, 65460), 3: (3, 70036), 54: (18, 104356)},
+    ("walker", torch.float32): {1: (1, 70532), 3: (3, 72996), 54: (27, 102564)},
+    ("humanoid", torch.float64): {1: (1, 128996), 3: (3, 138148), 54: (18, 206788)},
+    ("walker", torch.float64): {1: (1, 140052), 3: (3, 144980), 54: (27, 204116)},
+}
+
+
+@pytest.mark.parametrize("name, dtype", list(MATVEC_SMEM),
+                         ids=[f"{n}-{str(d)[6:]}" for n, d in MATVEC_SMEM])
+def test_matvec_w17_32_shared_memory_bytes(name, dtype):
+    """The 17..32 matvec stages each slot's n_a real rows, W wide, at its
+    place (slot_off, 16-byte aligned), then kc of a lane's k vectors (N x W
+    each, 16-byte aligned) and the seven index arrays it reads (row_ptr,
+    row_slot, slot_b, slot_off, slot_rc, node_vec, node_w): as many
+    vectors as fit two CTAs an SM (228 KB less 1 KB a CTA, halved) where
+    one vector does (float32), else one CTA an SM, spread evenly over the
+    fewest CTAs."""
+    from dojo_tpu_torch import models
+    from dojo_tpu_torch.graph import build_schedule
+
+    sched = build_schedule(models.get_mechanism(name, device="cpu").topo)
+    elem = torch.empty((), dtype=dtype).element_size()
+    N, S = sched.n_nodes, sched.n_slots
+    staged = -(-int(L._real_widths(sched)["slot_off"][-1]) * elem // 16) * 16
+    idx = (4 * S + 3 * N + 3) * 4
+    per_vec = N * sched.width * elem
+    for k, (kc, nbytes) in MATVEC_SMEM[name, dtype].items():
+        assert L.shared_chunk(sched, "matvec", dtype, k) == kc
+        layout = L.smem_layout(sched, "matvec", dtype, kc=kc)
+        assert layout["x"] == staged and layout["x"] % 16 == 0
+        assert layout["idx"] == staged + kc * per_vec
+        assert layout["bytes"] == nbytes == staged + kc * per_vec + idx
+        two = staged + per_vec + idx <= L.SMEM_HALF
+        assert two == (dtype == torch.float32)
+        assert nbytes <= (L.SMEM_HALF if two else L.SMEM_LIMIT)
 
 
 def test_wrappers_take_plain_version_on_cpu_at_any_width():
