@@ -144,7 +144,10 @@ def time_ms(fn, reps):
 
     A spin kernel holds the stream while the calls are enqueued, so the
     CUDA events time the calls back to back on the device rather than the
-    host's launch overhead (as long as a call's launches fit the queue)."""
+    host's launch overhead (as long as a call's launches fit the queue).
+    Where the spin ended before the host had enqueued every call (the host
+    slowed), the device waited on the host: the run is made again with a
+    spin twice as long, up to four times (counted in time_ms.redone)."""
     import torch
 
     def events():
@@ -163,14 +166,22 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     cycles_per_s = 10**7 / (start.elapsed_time(end) / 1e3)
-    start, end = events()
-    torch.cuda._sleep(int(2 * enqueue_s * cycles_per_s) + 10**5)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    for attempt in range(4):
+        start, end = events()
+        torch.cuda._sleep(int(2 ** (attempt + 1) * enqueue_s * cycles_per_s) + 10**5)
+        start.record()
+        for _ in range(reps):
+            fn()
+        drained = start.query()  # the spin ended before every call was enqueued
+        end.record()
+        torch.cuda.synchronize()
+        if not drained:
+            break
+        time_ms.redone += 1
     return start.elapsed_time(end) / reps
+
+
+time_ms.redone = 0  # runs made again because the spin ended first
 
 
 def work(sched, lanes, elem, k=1):

@@ -12,11 +12,11 @@ of its own picked from the schedule's block width W: W <= 16 (a half-warp
 per block, tiles padded to 16), 17..32 (factorize, solve and matvec at
 each node's real width: a level's tile is its widest node rounded up to 8,
 16, 24 or 32, groups of 8 or 16 lanes or a warp per node, blocks staged at
-their real size) and 33..72 (the factorize at each node's real width too,
-a node wider than 32 factored by the whole CTA; the solve and the matvec
-a thread per row of W, tiles of W).  The real-width kernels take the
-input blocks' pad as the assembler makes it: zero, identity on the
-diagonal blocks.  Each wrapper counts its kernel launches in
+their real size) and 33..72 (the same kernels at each node's real width,
+a node wider than 32 factored by the whole CTA and substituted a thread
+a row, a barrier a row; the matvec is the 17..32 class's).  The real-width
+kernels take the input blocks' pad as the assembler makes it: zero,
+identity on the diagonal blocks.  Each wrapper counts its kernel launches in
 ``<wrapper>.launches`` (a plain integer, all classes) and per class in
 ``<wrapper>.class_launches``.
 
@@ -125,7 +125,7 @@ def _nvcc() -> str:
 def build(defines: tuple = ()) -> tuple[str, str]:
     """Compile csrc/ldu.cu into a shared library unless a build of the same
     source and flags exists; ``defines`` are macros to set (LDU_PHASES: the
-    17..32 kernels' phase stamps, scripts/ldu_phase_split.py).  Returns
+    real-width kernels' phase stamps, scripts/ldu_phase_split.py).  Returns
     (library path, ptxas report: each kernel's registers, spills and shared
     memory)."""
     with open(SOURCE, "rb") as f:
@@ -447,12 +447,12 @@ def shared_chunk(sched: Schedule, kernel: str, dtype, k: int,
     """The columns a CTA of the kernels that share a lane's factors or
     blocks among its k right-hand sides takes of them: for ``kernel``
     "solve_shared" (W <= 16) at most SHARED_MAXKC (a lane of a warp each,
-    in one CTA an SM), for "matvec" (W <= 32) as many as fit two CTAs an SM
-    where a lane's blocks leave room for a vector, else one.  Raises
+    in one CTA an SM), for "matvec" (every class) as many as fit two CTAs
+    an SM where a lane's blocks leave room for a vector, else one.  Raises
     ValueError where not one column fits beside the factors."""
     cls = width_class(sched.width)
-    if cls != "w16" and (kernel != "matvec" or cls != "w32"):
-        raise ValueError(f"{kernel}: the shared-factor kernels take W <= 16 (the matvec W <= 32)")
+    if cls != "w16" and kernel != "matvec":
+        raise ValueError(f"{kernel}: the shared-factor solve takes W <= 16")
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
@@ -476,8 +476,8 @@ def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int, kc: int =
     (``_real_widths``): the factorize (17..72) stages every slot's real
     rows, and keeps every node's LU tile, reciprocals and PS in compact form
     and one level's X tiles (or a wide node's two arrays of LU rows); the
-    solve (17..32) stages the edge blocks' real rows, each node's real rows
-    of LU and PS, and its node vectors at stride W; the matvec (17..32)
+    solve (17..72) stages the edge blocks' real rows, each node's real rows
+    of LU and PS, and its node vectors at stride W; the matvec (17..72)
     stages every slot's real rows, ``kc`` node vectors at stride W and
     the schedule's index arrays it reads."""
     real = _real_widths(sched)
@@ -524,12 +524,12 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     array (csrc/ldu.cu FactLayout / SolveLayout; for the matvecs, the
     vectors' offset ``x``), and the CTA's dynamic shared memory in all
     (``bytes``).  "factorize" and "solve" take one lane (and one vector);
-    "solve_shared" (W <= 16) and "matvec" (W <= 32) one factorization and
-    ``kc`` of its right-hand sides.  ``buf_len`` is the length of the
-    schedule's int32 CSR buffer, copied to shared memory.  Tiles are padded
-    to ``tile_width`` of the schedule's width class (at each node's real
-    rows, ``_real_sizes``: the 17..32 class's kernels and the 33..72
-    factorize).  Raises ValueError for a CTA over the 227 KB it can have."""
+    "solve_shared" (W <= 16) and "matvec" one factorization and ``kc`` of
+    its right-hand sides.  ``buf_len`` is the length of the schedule's
+    int32 CSR buffer, copied to shared memory.  Tiles are padded to
+    ``tile_width`` of the schedule's width class (W <= 16), or each node
+    kept at its real rows (``_real_sizes``: the kernels of 17..72).  Raises
+    ValueError for a CTA over the 227 KB it can have."""
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
@@ -537,8 +537,7 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     TW = 0 if cls == "w32" else tile_width(sched.width)
     NGROUPS = WIDTH_CLASSES[cls][1]
     N, S, WW, TILE = sched.n_nodes, sched.n_slots, sched.width**2, TW * TW
-    if (kernel in ("solve", "matvec") and cls == "w32") or (kernel == "factorize"
-                                                             and cls != "w16"):
+    if cls != "w16" and kernel in ("factorize", "solve", "matvec"):
         sizes = _real_sizes(sched, kernel, elem, buf_len, kc)
     elif kernel == "factorize":
         K = _max_nodes(sched)
@@ -582,8 +581,6 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
             "si": buf_len * 4,  # the schedule
         }
     elif kernel == "matvec":
-        if cls != "w16":
-            raise ValueError("the staged matvec takes W <= 32")
         sizes = {
             "blocks": -(-S * WW * elem // 16) * 16,  # the lane's blocks
             "x": kc * N * TW * elem,  # the chunk's vectors, padded to 16 a node
@@ -745,13 +742,19 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) ->
     form) and the schedule in shared memory; a half-warp per node of a
     level pulls the edge contributions to its node in list order, gathers
     PS·b, and one lane substitutes with the node's LU in registers.  One
-    CTA barrier per level pass.  17 <= W <= 32: at each node's real width
-    (edge blocks, LU and PS staged at their real size), the node's group
-    substituting with y_i in lane i, two steps a shuffle round;
-    33 <= W <= 72: the CTA on one node at a time, a thread per row,
-    one CTA barrier per substitution step.  With k > 1 and W <= 16: one CTA
-    per factorization and chunk of up to 32 of its columns, the factors
-    staged once, a warp a node and a lane a column."""
+    CTA barrier per level pass.  17 <= W <= 72: at each node's real width
+    (edge blocks, LU and PS staged at their real size, each edge's row dot
+    over the other node's real terms), the node's group substituting with
+    y_i in lane i, two steps a shuffle round; a node wider than 32 (33 <=
+    W <= 72) by the warps that hold its rows, a thread a row, a named
+    barrier a row (ldu.blu_solve's order; the card may contract a product
+    and its difference into one FMA).  The real-width
+    classes take the pad of the factors and of the blocks that made them
+    as the assembler makes it (zero, identity on the diagonal blocks: LU's
+    and PS's pad identity, the edge blocks' zero); a solution's pad is then
+    the right-hand side's, which the kernel copies.  With k > 1 and
+    W <= 16: one CTA per factorization and chunk of up to 32 of its
+    columns, the factors staged once, a warp a node and a lane a column."""
     fb, lu, ps = fact
     if not _plain_or_cuda(rhs):
         return ldu.solve(ds.plan, fact, rhs, rhs_per_fact)
@@ -779,24 +782,21 @@ def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor,
     Bound on the card: reading the (B, S, W, W) blocks once (bytes).
     Design: W <= 16, one CTA per lane and chunk of its k vectors, the
     lane's blocks and the chunk's vectors staged once in shared memory,
-    coalesced, a thread an output row for up to 6 vectors; 17 <= W <= 32,
+    coalesced, a thread an output row for up to 6 vectors; 17 <= W <= 72,
     the same with each block staged as its real rows, a thread a real
     output row of one vector over its real terms, the blocks' pad taken as
     the assembler makes it (zero, identity on the diagonal blocks: a pad
-    row of the output is the vector's own entry); 33 <= W <= 72, one CTA
-    per vector, x in shared memory, a thread an output row of W.  A row
-    sums its node's slots in slot order."""
+    row of the output is the vector's own entry).  A row sums its node's
+    slots in slot order."""
     if not _plain_or_cuda(x):
         return ldu.matvec(ds.plan, blocks, x, rhs_per_fact)
     suffix, B, dev = _cuda_args(ds, rhs_per_fact, blocks=blocks, x=x)
-    k, kc, x_off, smem = rhs_per_fact, 0, 0, 0
-    if width_class(ds.sched.width) in ("w16", "w32"):
-        kc = ds.chunk("matvec", x.dtype, k)
-        layout = ds.layout("matvec", x.dtype, kc)
-        x_off, smem = layout["x"], layout["bytes"]
+    k = rhs_per_fact
+    kc = ds.chunk("matvec", x.dtype, k)
+    layout = ds.layout("matvec", x.dtype, kc)
     out = torch.empty_like(x)
     if B:
-        _launch(matvec, suffix, ds, dev, k, B, k, kc, x_off, smem,
+        _launch(matvec, suffix, ds, dev, k, B, k, kc, layout["x"], layout["bytes"],
                 blocks.data_ptr(), x.data_ptr(), out.data_ptr())
     return out
 

@@ -4,10 +4,11 @@
     python3 scripts/ldu_phase_split.py [--models humanoid,walker,block] [--lanes 1,64]
                                        [--out FILE]
 
-Builds csrc/ldu.cu with -DLDU_PHASES, in which lane 0 of each warp of the
-17..32 kernels and of the 33..72 factorize writes clock64() at every phase
-boundary, launches that build's factorize and (17..32) solve on each
-model's KKT (chip_smoke.model_kkt, float32) at each batch size, and prints
+Builds csrc/ldu.cu with -DLDU_PHASES, in which lane 0
+of each warp of the real-width factorize and solve (17..72) writes
+clock64() at every phase boundary, launches that build's factorize and
+solve on each model's KKT (chip_smoke.model_kkt, float32) at each batch
+size, and prints
 one JSON line: the card's name and power limit (nvidia-smi), the SM clock
 (cycles per second of torch.cuda._sleep against CUDA events), and per
 model and batch, in µs (the mean over the CTAs):
@@ -22,7 +23,9 @@ model and batch, in µs (the mean over the CTAs):
               fb, LU and PS (fb alone);
   solve     — staging (with PS's compact form, and the steps as above);
               per level pass the edge row dots, the node solves and the
-              barrier; write-back.
+              barrier; write-back; and at a 33..72 node wider than 32 (the
+              CTA's last such node solve) its forward and backward
+              substitution.
 A phase ends when its last warp is done; a barrier's wait runs from there
 to the barrier's release.  Also the instrumented and the plain kernels'
 times (chip_smoke.time_ms), the cost of the stamps.
@@ -56,10 +59,10 @@ def sm_cycles_per_s():
     return 10**8 / (start.elapsed_time(end) / 1e3)
 
 
-def stamp_buffer(B, per_cta):
+def stamp_buffer(lib, B, per_cta):
     """A stamp buffer for B CTAs, set as the instrumented kernels' target."""
     buf = torch.zeros(B * per_cta * 8, dtype=torch.int64, device="cuda")
-    rc = L.library(("LDU_PHASES",)).ldu_set_stamps(buf.data_ptr())
+    rc = lib.ldu_set_stamps(buf.data_ptr())
     C.check(rc == 0, f"ldu_set_stamps: CUDA error {rc}")
     return buf
 
@@ -113,6 +116,10 @@ def split(st, L_, us, kernel):
                             "arrive": mean(steps[2] - steps[1])}
     if kernel == "solve":
         out["staging_steps"]["ps_compact"] = mean(last(st, sub + 3) - steps[2])
+        probe = [last(st, sub + 5 + k) for k in range(3)]
+        if bool((probe[0] > 0).all()):  # a wide node's wide_node_solve: PS·v, forward, backward
+            out["wide_node_solve"] = {"forward": mean(probe[1] - probe[0]),
+                                      "backward": mean(probe[2] - probe[1])}
     else:
         out["write_back_fb"] = mean(last(st, sub + 4) - prev)
         probe = [last(st, sub + 5 + k) for k in range(6)]
@@ -157,20 +164,20 @@ def main():
                 ctypes.byref(ds.struct), ctypes.byref(ds.layout("solve", f32)), B, 1, 0,
                 fb.data_ptr(), lu.data_ptr(), ps.data_ptr(), rhs.data_ptr(), x.data_ptr(),
                 stream())
-            buf = stamp_buffer(B, per_cta)
+            buf = stamp_buffer(lib, B, per_cta)
             for fn in (fact, solve):  # warm up
                 C.check(fn() == 0, "launch failed")
             torch.cuda.synchronize()
             ref = L.factorize(ds, blocks)
             C.check(all(torch.equal(a, b) for a, b in zip((fb, lu, ps), ref)),
                     f"{name}: the instrumented factorize differs from the plain build's")
-            C.check(cls == "w72" or torch.equal(x, L.solve(ds, ref, rhs)),
+            C.check(torch.equal(x, L.solve(ds, ref, rhs)),
                     f"{name}: the instrumented solve differs from the plain build's")
             nl = len(sched.levels)
             res = {}
             kernels = (("factorize", fact, lambda: L.factorize(ds, blocks)),
                        ("solve", solve, lambda: L.solve(ds, ref, rhs)))
-            for kernel, fn, plain_fn in kernels[: 1 if cls == "w72" else 2]:
+            for kernel, fn, plain_fn in kernels:
                 st = stamps_of(fn, buf, B, per_cta)
                 res[kernel] = split(st, nl, us, kernel)
                 res[kernel]["ms_instrumented"] = C.time_ms(fn, 20)

@@ -315,3 +315,51 @@ def test_block_lu_bitwise_quadruped_kkt_on_cuda():
     sched, blocks, _ = quadruped_kkt(torch.float32, "cuda")
     res = C.lu_vs_plain(sched, *L.factorize(L.DeviceSchedule(sched, "cuda"), blocks))
     assert res["blocks"] == 4 * sched.n_nodes and res["differ"] == 0, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+def test_w33_72_solve_matvec_on_cuda(k):
+    """The 33..72 solve (solve_real's design, block's 70-wide node
+    substituted a thread a row, a barrier a row) unrefined, and the 33..72
+    matvec (matvec_real), with k right-hand sides a factorization, against
+    the plain versions on the same factors and blocks, block at an odd B,
+    float32 and float64: the solve to max(2e-5, 4x the plain float32
+    solve's own error against float64) of its scale (float64: 1e-12), the
+    matvec within 1e-5·Σ|E||x|, each limit failed by a control off by
+    ~1e-3 (chip_smoke.control); the pad of a solution is the right-hand
+    side's and of a product the vector's, exactly; both kernels of the
+    w72 class, with k > 1 counted in ``shared_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke as C
+
+    lanes = 3
+    for dtype in (torch.float32, torch.float64):
+        sched, blocks, r = model_kkt("block", dtype, "cuda", lanes)
+        ds = L.DeviceSchedule(sched, "cuda")
+        fact = L.factorize(ds, blocks)
+        noise = np.random.default_rng(k).standard_normal((lanes * k, r.shape[-1]))
+        flat = r.repeat_interleave(k, 0) + torch.as_tensor(noise, dtype=dtype, device="cuda")
+        b = L.flat_to_nodes(ds.plan, flat).contiguous()
+        L.reset_launches()
+        x = L.solve(ds, fact, b, k)
+        y = L.matvec(ds, blocks, b, k)
+        torch.cuda.synchronize()
+        assert (L.solve.class_launches["w72"], L.matvec.class_launches["w72"]) == (1, 1)
+        assert (L.solve.shared_launches["w72"], L.matvec.shared_launches["w72"]) == (k > 1,) * 2
+        x_ref = ldu.solve(ds.plan, fact, b, k)
+        scale = float(x_ref.abs().max())
+        lim = 1e-12
+        if dtype == torch.float32:
+            x_64 = ldu.solve(ds.plan, [f.double() for f in fact], b.double(), k)
+            lim = max(2e-5, 4 * float((x_ref.double() - x_64).abs().max()) / scale)
+        rel = lambda a: float((a - x_ref).abs().max()) / scale
+        assert rel(x) < lim < rel(C.control(x_ref))
+        y_ref = ldu.matvec(ds.plan, blocks, b, k)
+        mag = ldu.matvec(ds.plan, blocks.abs(), b.abs(), k)
+        within = lambda a: bool(((a - y_ref).abs() <= 1e-5 * mag + 1e-30).all())
+        assert within(y) and not within(C.control(y_ref))
+        width = torch.as_tensor(np.asarray(sched.node_width), device="cuda")
+        pad = torch.arange(sched.width, device="cuda") >= width[:, None]
+        assert torch.equal(x[:, pad], b[:, pad]) and torch.equal(y[:, pad], b[:, pad])

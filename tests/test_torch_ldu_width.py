@@ -1,19 +1,31 @@
-"""The 17..32 kernels work at each node's real width: their premise on the
-plain versions, and the device schedule that carries the real widths.
+"""The real-width kernels (17..32, and 33..72) work at each node's real
+width: their premise on the plain versions, and the device schedule that
+carries the real widths.
 
-The kernels of csrc/ldu.cu's 17..32 class factor each node's real n x n
-block (a tile of n rounded up to 8, its pad rows identity), form
-X = D_i⁻¹E_{i,b} and the Schur products over the real n_i terms, and solve
-at the node's real width, where the plain versions (ldu.py) work on W x W
-blocks at the level's width.  That the two agree rests on the blocks' pad
-([[0, 0], [0, I]], as the assembler makes it): pad pivots are identity rows
-and pad terms exact zeros.  Here, on the plain versions in float32, on the
-KKTs of humanoid, walker and snake (chip_smoke.model_kkt at B=2):
+The kernels of csrc/ldu.cu's 17..32 and 33..72 classes factor each node's
+real n x n block (a tile of n rounded up to 8, its pad rows identity, or
+over 32 by the whole CTA), form X = D_i⁻¹E_{i,b} and the Schur products
+over the real n_i terms, solve at the node's real width (over 32 a thread
+a row, a barrier a row) with each edge's row dot over the other node's real
+terms, and multiply over the real terms, where the plain versions (ldu.py)
+work on W x W blocks at the level's width.  That the two agree rests on
+the blocks' pad ([[0, 0], [0, I]], as the assembler makes it): pad pivots
+are identity rows and pad terms exact zeros.  Here, on the plain versions
+in float32, on the KKTs of humanoid, walker, snake and block
+(chip_smoke.model_kkt at B=2):
+  - the assembler's pad is the schedule's pad_eye, exactly, for every
+    registered model with W > 16 (hopper and twister assembled apart, in
+    float64 at B=1);
   - each node's ldu.blu_factor at the level's width equals, bitwise, its
     real block's at the node's width on the real part, and its pad is
     identity in LU and PS;
   - a Schur product and a block solve summed over the real indices equal
-    the padded ones, bitwise, on the real part.
+    the padded ones, bitwise, on the real part;
+  - each node's solve with its factors, and each solve edge's row dot,
+    over the real indices equal the padded ones, bitwise (the pad of a
+    solution is the right-hand side's); and the 33..72 solve's row by
+    row substitution (wide_node_solve) keeps ldu.blu_solve's order, bitwise
+    where products are rounded apart.
 And on the host: each slot's place (ldu_cuda._csr slot_off, slot_rc)
 holds its real rows, the places tile the staged blocks without overlap,
 and the level tasks cover each X column and target row once (the shared
@@ -29,28 +41,70 @@ import chip_smoke as C
 from dojo_tpu_torch import ldu, ldu_cuda as L, models
 from dojo_tpu_torch.graph import build_schedule
 
-MODELS = ("humanoid", "walker", "snake")
+MODELS = ("humanoid", "walker", "snake", "block")
+# the registered models with W > 16 that the fixture does not assemble
+OTHER_WIDE = ("hopper", "twister")
 
 
 @pytest.fixture(scope="module", params=MODELS)
 def factored(request):
     """A model's schedule, its float32 KKT (chip_smoke.model_kkt, B=2, on
-    the CPU) and the plain factorization of it."""
+    the CPU), the plain factorization of it, and node vectors from a seed
+    (pad entries included)."""
     name = request.param
     mech = models.get_mechanism(name, device="cpu").cast(torch.float32)
     sched, ds, blocks, rhs = C.model_kkt(mech, models.initialize(mech, name), 2, "cpu")
-    return name, sched, blocks, ldu.factorize(ds.plan, blocks)
+    v = torch.as_tensor(np.random.default_rng(0).standard_normal(tuple(rhs.shape)),
+                        dtype=torch.float32)
+    return name, sched, blocks, ldu.factorize(ds.plan, blocks), v
 
 
 def _real(sched, nd):
     return int(sched.node_width[nd])
 
 
+def _check_pad(sched, blocks):
+    """Every slot's pad entries (rows past n_a or columns past n_b) equal
+    the schedule's pad_eye there, exactly: zero, identity on a diagonal
+    slot's pad diagonal."""
+    W = sched.width
+    eye = torch.as_tensor(sched.pad_eye, dtype=blocks.dtype)
+    for (a, b), s in sched.slot.items():
+        pad = torch.ones(W, W, dtype=torch.bool)
+        pad[: _real(sched, a), : _real(sched, b)] = False
+        assert torch.equal(blocks[:, s][:, pad], eye[s][pad].expand(blocks.shape[0], -1))
+
+
+def test_assembler_pad_is_pad_eye(factored):
+    """The premise itself: the assembler's blocks (blocks.Assembler, through
+    chip_smoke.model_kkt) hold pad_eye's pad (graph.py), on the fixture's
+    KKTs."""
+    _, sched, blocks, _, _ = factored
+    _check_pad(sched, blocks)
+
+
+def test_wide_models_listed():
+    """MODELS and OTHER_WIDE are every registered model with W > 16."""
+    wide = {m for m in models.registered_models()
+            if build_schedule(models.get_mechanism(m, device="cpu").topo).width > 16}
+    assert wide == set(MODELS + OTHER_WIDE)
+
+
+@pytest.mark.parametrize("name", OTHER_WIDE)
+def test_assembler_pad_is_pad_eye_other_wide(name):
+    """The same for the other registered models with W > 16, each assembled
+    in float64 at B=1 from its initial state."""
+    mech = models.get_mechanism(name, device="cpu")
+    sched, _, blocks, _ = C.model_kkt(mech, models.initialize(mech, name), 1, "cpu")
+    assert sched.width > 16 and blocks.dtype == torch.float64
+    _check_pad(sched, blocks)
+
+
 def test_block_lu_at_real_width_is_bitwise(factored):
     """Each node's block as factored (fb's diagonal slot): blu_factor at the
     level's width equals blu_factor of the real n x n block at width n,
     bitwise, in LU and PS; the pad of both is identity."""
-    _, sched, _, (fb, _, _) = factored
+    _, sched, _, (fb, _, _), _ = factored
     W = sched.width
     eye = torch.eye(W, dtype=torch.float32)
     for lv in sched.levels:
@@ -78,7 +132,7 @@ def test_schur_terms_at_real_width_are_bitwise(factored):
     at the level's width (W x W, the pad terms zero) and over the real
     indices only (n_i x n_i factors, n_a x n_i by n_i x n_b), equal
     bitwise on the real part."""
-    _, sched, blocks, _ = factored
+    _, sched, blocks, _, _ = factored
     plan = ldu.LduPlan(sched, "cpu")
     fb = blocks.clone()
     slot_ab = {s: ab for ab, s in sched.slot.items()}
@@ -105,7 +159,64 @@ def test_schur_terms_at_real_width_are_bitwise(factored):
     torch.testing.assert_close(fb, ldu.factorize(plan, blocks)[0], rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", MODELS + ("hopper", "twister", "block"))
+def test_solve_at_real_width_is_bitwise(factored):
+    """The real-width solve's premise: each node's block solve with its
+    factors (ldu.blu_solve, LU and PS of ldu.factorize at the level's
+    width) of a vector at W equals, bitwise, the solve with the real n x n
+    factors of its n real entries, and leaves its pad entries as they are
+    (a solution's pad is the right-hand side's); each solve edge's row dot
+    over W terms in order equals, bitwise, the same over the other node's
+    real terms (the vector's pad entries not zero), and is zero past the
+    block's real rows."""
+    _, sched, _, (fb, LU, PS), v = factored
+    W = sched.width
+    for nd in range(sched.n_nodes):
+        n = _real(sched, nd)
+        x = ldu.blu_solve(LU[:, nd], PS[:, nd], v[:, nd])
+        x_n = ldu.blu_solve(LU[:, nd, :n, :n], PS[:, nd, :n, :n], v[:, nd, :n])
+        assert torch.equal(x[:, :n], x_n) and torch.equal(x[:, n:], v[:, nd, n:])
+    slot_ab = {s: ab for ab, s in sched.slot.items()}
+    for lv in sched.levels:
+        for s in [int(e) for e in lv.fwd_ai] + [int(e) for e in lv.bwd_ia]:
+            a, o = slot_ab[s]
+            na, no = _real(sched, a), _real(sched, o)
+            D = _seq_product(fb[:, s], v[:, o, :, None], W)
+            D_n = _seq_product(fb[:, s, :na, :no], v[:, o, :no, None], no)
+            assert torch.equal(D[:, :na], D_n) and not D[:, na:].any()
+
+
+def _row_solve(lu, ps, b, n):
+    """csrc/ldu.cu wide_node_solve's substitution in numpy, thread i holding
+    y_i: y = PS·b, then a step a row, forward: y_i -= L_ij y_j for every
+    i > j, j ascending; backward: y_j /= U_jj, then y_i -= U_ij y_j for
+    every i < j, j descending (float32, each product and difference
+    rounded apart)."""
+    y = (ps[:n, :n] @ b[:n]).astype(np.float32)
+    for j in range(n - 1):
+        y[j + 1 :] -= lu[j + 1 : n, j] * y[j]
+    for j in reversed(range(n)):
+        y[j] /= lu[j, j]
+        y[:j] -= lu[:j, j] * y[j]
+    return y
+
+
+def test_row_node_solve_matches_blu_solve(factored):
+    """The 33..72 solve substitutes a node wider than 32 a thread a row,
+    a barrier a row (wide_node_solve): each row takes ldu.blu_solve's
+    updates in its order, so that the numpy model of it, rounding each
+    product and difference apart as ldu.blu_solve does on the CPU, equals
+    ldu.blu_solve bitwise on every node of lane 0.  On the card nvcc may contract a
+    product and its difference into one FMA: there the kernel is held to
+    the plain solve within a tolerance (tests/test_torch_cuda.py)."""
+    _, sched, _, (_, LU, PS), v = factored
+    for nd in range(sched.n_nodes):
+        n = _real(sched, nd)
+        want = ldu.blu_solve(LU[0, nd], PS[0, nd], v[0, nd])[:n].numpy()
+        got = _row_solve(LU[0, nd].numpy(), PS[0, nd].numpy(), v[0, nd].numpy(), n)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", MODELS + OTHER_WIDE)
 def test_real_width_schedule_places(name):
     """_csr's real-width arrays (17..32, and block's W = 70): each level's
     tile (its own, or where the tiles up to 32 would switch more than once

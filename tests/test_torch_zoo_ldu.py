@@ -19,7 +19,8 @@ from test_torch_cuda import model_kkt
 from test_torch_ldu_order import _factorize_kernel_order, _solve_kernel_order, _swap_rows
 
 from dojo_tpu import ldu as jldu
-from dojo_tpu_torch import ldu, ldu_cuda as L
+from dojo_tpu_torch import ldu, ldu_cuda as L, models
+from dojo_tpu_torch.graph import build_schedule
 
 WIDE = ("humanoid", "block")  # W = 22 and W = 70
 
@@ -68,12 +69,17 @@ def test_kernel_order_matches_plain_f64(kkt64):
                                ldu.solve(plan, ref, rhs).numpy(), rtol=0, atol=1e-12)
 
 
+def _schedule(name):
+    """A zoo model's elimination schedule (no KKT assembled)."""
+    return build_schedule(models.get_mechanism(name, device="cpu").topo)
+
+
 @pytest.mark.parametrize("name", ["snake", "hopper", "walker", "humanoid", "block"])
 def test_schedule_lists(name):
     """_csr takes the zoo's schedules: every Schur update once under its
     target, each level's pairs distinct, the solve's edges once under the
     node they update, and the tile index of each node in its level."""
-    sched = model_kkt(name, torch.float64, lanes=1)[0]
+    sched = _schedule(name)
     a = L._csr(sched)
     n_upd = sum(len(lv.upd_tgt) for lv in sched.levels)
     assert sorted(a["tgt_upd"].tolist()) == list(range(n_upd))
@@ -247,7 +253,7 @@ def test_width_classes():
 SMEM = {
     ("humanoid", torch.float32): (94672, 97504),
     ("walker", torch.float32): (102208, 101888),
-    ("block", torch.float32): (104400, 82588),
+    ("block", torch.float32): (104400, 66992),
     ("snake", torch.float32): (31312, 24896),
     ("hopper", torch.float32): (55264, 55552),
     ("twister", torch.float32): (85520, 73504),
@@ -255,20 +261,27 @@ SMEM = {
     ("walker", torch.float64): (194736, 194224),
     ("snake", torch.float64): (60192, 47520),
     ("hopper", torch.float64): (105152, 105792),
-    ("block", torch.float64): (207920, 164068),
+    ("block", torch.float64): (207920, 133120),
+}
+# block's matvec CTA (33..72: the 17..32 class's matvec_real) at k = 1, 3
+# and 54: (vectors a CTA takes, its shared memory in bytes)
+BLOCK_MATVEC_SMEM = {
+    torch.float32: {1: (1, 43220), 3: (3, 44340), 54: (54, 72900)},
+    torch.float64: {1: (1, 86340), 3: (3, 88580), 54: (27, 115460)},
 }
 
 
 @pytest.mark.parametrize("name, dtype", list(SMEM), ids=[f"{n}-{str(d)[6:]}" for n, d in SMEM])
 def test_shared_memory_bytes(name, dtype):
-    """A lane's shared memory in each class (17..32 at real widths, so that
+    """A lane's shared memory in each class (17..72 at real widths, so that
     humanoid fits in float64 too: its padded lane took 448,432 bytes; the
     33..72 factorize too, so that block's float64 lane fits: it took
-    over 232,448; every real-width array 16-byte aligned for its cp.async
-    copies), and the ValueError, with the bytes, of a lane over the limit:
-    such a lane never reaches a kernel, and never the plain version on a
-    card."""
-    sched = model_kkt(name, torch.float64, lanes=1)[0]
+    over 232,448; block's solve took 82,588 / 164,068 bytes with W x W
+    blocks; every real-width array 16-byte aligned for its cp.async
+    copies; block's matvec CTA as BLOCK_MATVEC_SMEM says, under the limit),
+    and the ValueError, with the bytes, of a lane over the limit: such a
+    lane never reaches a kernel, and never the plain version on a card."""
+    sched = _schedule(name)
     for kernel, want in zip(("factorize", "solve"), SMEM[name, dtype]):
         if want is None:
             with pytest.raises(ValueError, match=r"one lane needs \d+ bytes of shared memory"):
@@ -279,8 +292,16 @@ def test_shared_memory_bytes(name, dtype):
             fields = [f for f, _ in L._LAYOUT_STRUCTS[kernel]._fields_]
             assert list(layout) == fields
             assert [layout[f] for f in fields] == sorted(layout.values())
-            if L.width_class(sched.width) == "w32" or (kernel, name) == ("factorize", "block"):
+            if L.width_class(sched.width) != "w16":
                 assert all(layout[f] % 16 == 0 for f in fields)
+    if name == "block":
+        elem = torch.empty((), dtype=dtype).element_size()
+        staged = int(L._real_widths(sched)["slot_off"][-1]) * elem
+        for k, (kc, nbytes) in BLOCK_MATVEC_SMEM[dtype].items():
+            assert L.shared_chunk(sched, "matvec", dtype, k) == kc
+            layout = L.smem_layout(sched, "matvec", dtype, kc=kc)
+            assert layout["x"] == staged and staged % 16 == 0 and layout["idx"] % 16 == 0
+            assert layout["bytes"] == nbytes <= L.SMEM_LIMIT
 
 
 # the 17..32 matvec's CTA: {k: (vectors a CTA takes, its shared memory in
@@ -304,10 +325,7 @@ def test_matvec_w17_32_shared_memory_bytes(name, dtype):
     vectors as fit two CTAs an SM (228 KB less 1 KB a CTA, halved) where
     one vector does (float32), else one CTA an SM, spread evenly over the
     fewest CTAs."""
-    from dojo_tpu_torch import models
-    from dojo_tpu_torch.graph import build_schedule
-
-    sched = build_schedule(models.get_mechanism(name, device="cpu").topo)
+    sched = _schedule(name)
     elem = torch.empty((), dtype=dtype).element_size()
     N, S = sched.n_nodes, sched.n_slots
     staged = -(-int(L._real_widths(sched)["slot_off"][-1]) * elem // 16) * 16
