@@ -28,14 +28,15 @@ Phases, each printed as one JSON line with elapsed seconds:
              device busy share, and the top CPU operators by self time;
   reference— lane 0 of the validation step against one float64 step of the
              same state through the plain path on the CPU;
-  mpc      — one control step of bench.py's phase "mpc" (rt, H=40, B=32
-             scenarios, α ∈ {1, 0.5, 0.25, 0.1}, float32): make_trot_rt's
+  mpc      — one control step of bench.py's phase "mpc" (rt, B=32
+             scenarios, α ∈ {1, 0.5, 0.25, 0.1}, float32; H=20, half
+             bench.py's horizon, printed as "reduced"): make_trot_rt's
              rollout, linearize (54 tangent columns per knot against one
              factorization), Riccati pass and α-batched forward pass, then
              the plant step; wall ms per part, Newton iterations, rescued
              lanes, okf, costs, best-α counts, sanitized knots, kernel
              launches and peak memory.  It also holds solve and matvec
-             with a shared factorization (1,280 knots × 54 columns: the
+             with a shared factorization (B·H = 640 knots × 54 columns: the
              W ≤ 16 shared-factor solve kernel, alone and refined once, and
              the staged matvec) to their plain versions, with times, bounds
              and the BSR product
@@ -56,14 +57,26 @@ Phases, each printed as one JSON line with elapsed seconds:
              only at the factorize's real widths) and twister's in float32
              through their class's kernels against the plain versions,
              block LUs bitwise, with times and both bounds.
+  diff     — the differentiable step (gradients.make_diff_step*: the IFT
+             as a torch.autograd.Function) on the quadruped at bench.py's
+             options, float32, B=64 lanes with their own inputs, T=3 steps:
+             (a) backward into every step's inputs, contact_friction and
+             mass; (b) forward mode (torch.func.jvp) against (a) along a
+             seeded direction, also in float64 on 8 lanes; (c)
+             minimal_jacobians (dense LU) against linearize (the k = 54
+             shared-factor kernels) on 8 lanes; (d) the sphere's jvp in v0
+             against central differences, float64, 16 lanes; (e)
+             solve.traced against solve, with the per-iteration medians
+             (diff_trace); each part's seconds, errors and limits.
 Then one {"kernels": [...]} line (a row per kernel and width class, the
 17–32 rows on humanoid's KKT and again on walker's (<kernel>_w17_32_walker),
 and the rows solve_shared and matvec_shared of k = 54 right-hand sides a
 factorization, with the launches of each row's kernel on the steps chains,
-in the control step as launches_mpc and in the zoo's timed steps as
+in the control step as launches_mpc, in the zoo's timed steps as
 launches_zoo (the class's, over every model; launches_zoo_model: on the
-row's model); bound_ms counts W-wide blocks, bound_ms_real each node's
-real width), the nvidia-smi line, and as the last line
+row's model) and in the diff phase as launches_diff; bound_ms counts
+W-wide blocks, bound_ms_real each node's real width), the nvidia-smi line,
+and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the exit code is
 non-zero and the last line is not printed.  Without a CUDA device, or
 without the repository beside it, the script fails.
@@ -126,6 +139,30 @@ LIN_TOL = 2.5e-4
 # the CPU in float32 and float64 (~1.5 s of CPU a knot)
 PLANT_LANES, PLANT_KNOTS = 32, 12
 PLANT_OPTS = dict(rtol=1e-6, btol=1e-4, max_iter=30)
+# phase diff: the quadruped at bench.py's options, float32, DIFF_B lanes of
+# T steps, each lane with its own inputs (DIFF_U_SCALE·N(0, 1) per actuated
+# coordinate); the float64 run of its forward/reverse check on DIFF_B64
+# lanes; minimal_jacobians against linearize on DIFF_JAC_LANES lanes; the
+# sphere's jvp against central differences on DIFF_FD_LANES lanes
+DIFF_B, DIFF_T, DIFF_B64, DIFF_JAC_LANES, DIFF_FD_LANES = 64, 3, 8, 8, 16
+# the float64 forward/reverse check takes one step (three took 45 s of host
+# time on the card, PR 12): the call's time limit
+DIFF_T64 = 1
+DIFF_U_SCALE, DIFF_FD_EPS, DIFF_FD_ATOL = 0.1, 1e-5, 1e-4
+# (d)'s solves run to max_iter 100: at rtol = btol = 1e-8 the sphere 2 cm
+# over the ground takes 21-54 iterations over v0 in 0.5-2.0 m/s (float64,
+# the CPU and the card alike, PR 12), and at the default 50 three of the 16 lanes
+# stop short, where the relaxed solution's jvp is no derivative of the
+# unconverged map
+DIFF_FD_ITERS = 100
+# limits, relative: (b) |forward − reverse| / Σ|∂L/∂θᵢ dᵢ|, the same check
+# on the CPU's plain path at B = 8 reading 1.8e-8 in float32 and 1.6e-16 in
+# float64; (c) max(|ΔA|, |ΔB|) / max(1, |A|), as mpc_linearize scales its
+# own, 4.6e-5 on the CPU at those 8 lanes (about 10x: DIFF_JAC_TOL); (e) solve.traced's
+# w against solve's on the lanes solve did not rescue, relative to max|w|
+# (bitwise equal on the CPU)
+DIFF_FWD_TOL = {"torch.float32": 1e-5, "torch.float64": 1e-8}
+DIFF_JAC_TOL, DIFF_TRACE_TOL = 5e-4, 1e-6
 H100 = {"bytes_per_s": 3.35e12, "f32_flops": 67e12, "f64_flops": 34e12}
 
 
@@ -1014,6 +1051,189 @@ def zoo_phase(K=ZOO_K, B=ZOO_B, names=ZOO_MODELS, device="cuda"):
     return total, rows
 
 
+def diff_phase(B=DIFF_B, T=DIFF_T, device="cuda"):
+    """The differentiable step on the card (gradients.make_diff_step*): the
+    quadruped at bench.py's options in float32, B lanes from its initial
+    state, each with its own inputs (DIFF_U_SCALE·N(0, 1) per actuated
+    coordinate, seeded), T steps of make_diff_step_minimal and the loss
+    mean over lanes of Σ y_T².  Checks (a) reverse mode: finite grads on
+    every step's inputs, contact_friction and mass; (b) forward mode: ⟨∇L,
+    d⟩ by torch.func.jvp along a seeded direction d in (u, contact_friction)
+    against (a), relative to Σ|∂L/∂θᵢ dᵢ|, float32 (and float64 on
+    DIFF_B64 lanes over DIFF_T64 steps); (e) solve.traced against solve on
+    step 1's solve; (c) minimal_jacobians (dense LU) against linearize (the
+    LDU kernels' k = 54 shared-factor solve and one refine sweep) on
+    DIFF_JAC_LANES of step 1's lanes that (e)'s solve converged without the
+    rescue; (d) the sphere's ∂(next state)/∂v0 by jvp against central
+    differences, float64.
+    Returns the kernels' launches in the phase per kernels-line row."""
+    import dataclasses
+
+    import torch
+
+    from dojo_tpu_torch import ldu_cuda as L, models
+    from dojo_tpu_torch.core import SolverOptions, tensor_map
+    from dojo_tpu_torch.gradients import (make_diff_step, make_diff_step_minimal,
+                                          make_rollout_linearize_minimal, minimal_jacobians,
+                                          to_maximal, to_minimal)
+    from dojo_tpu_torch.mpc import actuated_indices
+    from dojo_tpu_torch.residual import make_context, pad_inputs
+    from dojo_tpu_torch.solver import make_solver
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    opts = SolverOptions(rtol=1e-6, btol=1e-4, max_iter=30)
+    seconds, errors = {}, {}
+    L.reset_launches()
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        sync()
+        now = time.perf_counter()
+        seconds[name] = seconds.get(name, 0.0) + now - clock[0]
+        clock[0] = now
+        emit("diff_part", part=name, seconds=seconds[name])
+
+    def case(dtype, lanes, T):
+        """(mech, y0 (lanes, ny), inputs (T, lanes, nu), direction of (b) in
+        the inputs and in contact_friction, loss of (inputs, friction, mass))."""
+        mech = models.get_mechanism("quadruped", timestep=0.05, device=dev).cast(dtype)
+        topo, params = mech.topo, mech.params
+        s0 = tensor_map(lambda a: a[None], models.initialize(mech, "quadruped"))
+        y0 = to_minimal(topo, params, s0).expand(lanes, -1).contiguous()
+        gen = torch.Generator().manual_seed(0)
+        act = torch.as_tensor(actuated_indices(mech), dtype=torch.long)
+        draw = lambda *shape: torch.randn(*shape, generator=gen, dtype=torch.float64)
+        us = torch.zeros(T, lanes, topo.input_dim, dtype=torch.float64)
+        us[..., act] = DIFF_U_SCALE * draw(T, lanes, len(act))
+        du = torch.zeros_like(us)
+        du[..., act] = draw(T, lanes, len(act))
+        dfric = draw(topo.nc)
+        to = lambda a: a.to(dtype).to(dev)
+        step = make_diff_step_minimal(topo, opts, device=dev)
+
+        def loss(u, fric, mass):
+            p = dataclasses.replace(params, contact_friction=fric, mass=mass)
+            y = y0
+            for t in range(T):
+                y = step(p, y, u[t])
+            return (y * y).sum(-1).mean()
+
+        return mech, y0, to(us), (to(du), to(dfric)), loss
+
+    def reverse_forward(dtype, lanes, T, what):
+        """(a) and (b) on `lanes` lanes over T steps; returns (mech, y0,
+        inputs)."""
+        mech, y0, us, (du, dfric), loss = case(dtype, lanes, T)
+        u = us.clone().requires_grad_()
+        fric = mech.params.contact_friction.clone().requires_grad_()
+        mass = mech.params.mass.clone().requires_grad_()
+        value = loss(u, fric, mass)
+        value.backward()
+        grads = {"u": u.grad, "contact_friction": fric.grad, "mass": mass.grad}
+        lap("a" + what)
+        for name, g in grads.items():
+            check(bool(torch.isfinite(g).all()), f"diff {what}: non-finite grad of {name}")
+        step_norm = u.grad.flatten(1).norm(dim=1)
+        check(bool((step_norm > 0).all()), f"diff {what}: a step's inputs got no gradient")
+        _, fwd = torch.func.jvp(lambda u_, f_: loss(u_, f_, mech.params.mass),
+                                (us, mech.params.contact_friction), (du, dfric))
+        terms = torch.cat([(u.grad * du).flatten(), fric.grad * dfric]).double()
+        rev = terms.sum().item()
+        rel = abs(fwd.item() - rev) / terms.abs().sum().item()
+        errors["b" + what] = dict(forward=fwd.item(), reverse=rev, rel_err=rel,
+                                  tol=DIFF_FWD_TOL[str(dtype)], loss=value.item(),
+                                  grad_norm={k: g.norm().item() for k, g in grads.items()},
+                                  step_grad_norm=step_norm.tolist())
+        lap("b" + what)
+        check(rel < DIFF_FWD_TOL[str(dtype)],
+              f"diff {what}: forward {fwd.item()} against reverse {rev}: {rel} relative "
+              f"(tol {DIFF_FWD_TOL[str(dtype)]})")
+        return mech, y0, us
+
+    mech, y0, us = reverse_forward(torch.float32, B, T, "")
+    reverse_forward(torch.float64, DIFF_B64, DIFF_T64, "64")
+    topo, params = mech.topo, mech.params
+
+    # (e) solve.traced against solve on step 1's solve
+    init_w, solve, _ = make_solver(topo, device=dev)
+    state = to_maximal(topo, params, y0)
+    ctx = make_context(topo, state, params, pad_inputs(topo, us[0]))
+    w0 = init_w(state.v, state.w, params)
+    res = solve(w0, ctx, params, opts)
+    res_t, trace = solve.traced(w0, ctx, params, opts)
+    keep = ~res.rescued
+    same_iters = bool((res_t.iterations[keep] == res.iterations[keep]).all())
+    w_scale = res.w[keep].abs().max().item()
+    err_w = (res_t.w[keep] - res.w[keep]).abs().max().item() / w_scale
+    valid = trace["valid"]
+    med = lambda k: [trace[k][i][valid[i]].median().item() if valid[i].any() else None
+                     for i in range(opts.max_iter)]
+    errors["e"] = dict(rescued=int(res.rescued.sum()), same_iterations=same_iters,
+                       w_rel_err=err_w, tol=DIFF_TRACE_TOL,
+                       iterations=res.iterations.float().mean().item())
+    lap("e")
+    print(json.dumps({"phase": "diff_trace", "median_rvio": med("rvio"),
+                      "median_bvio": med("bvio"), "median_mu": med("mu")}), flush=True)
+    check(same_iters, "diff (e): solve.traced's iterations differ from solve's")
+    check(err_w < DIFF_TRACE_TOL, f"diff (e): solve.traced's w {err_w} of scale from solve's "
+          f"(tol {DIFF_TRACE_TOL})")
+
+    # (c) the dense IFT against the LDU kernels' IFT at step 1, on lanes that
+    # step 1's solve converged without the rescue (a stalled lane's
+    # float32 J is noise to both)
+    lanes = torch.nonzero(res.success & ~res.rescued)[:DIFF_JAC_LANES, 0]
+    y_c, u_c = y0[lanes], us[0, lanes]
+    A_d, B_d = minimal_jacobians(topo, opts, device=dev)(params, y_c, u_c)
+    step_w, linearize, _ = make_rollout_linearize_minimal(topo, opts, device=dev)
+    _, w, mu, ok = step_w(params, y_c, u_c)
+    A_k, B_k = linearize(params, y_c, u_c, w, mu)
+    scale = max(1.0, A_d.abs().max().item())
+    rel = max((A_k - A_d).abs().max().item(), (B_k - B_d).abs().max().item()) / scale
+    errors["c"] = dict(lanes=lanes.tolist(), rel_err=rel, tol=DIFF_JAC_TOL, A_inf=scale,
+                       converged=int(ok.sum()))
+    lap("c")
+    check(len(lanes) == DIFF_JAC_LANES and bool(ok.all()),
+          f"diff (c): {int(ok.sum())} of {len(lanes)} lanes converged")
+    check(rel < DIFF_JAC_TOL, f"diff (c): minimal_jacobians against linearize {rel} of "
+          f"max(1, |A|) (tol {DIFF_JAC_TOL})")
+
+    # (d) the sphere through contact, float64: jvp in v0 against central differences
+    # one solve of 3 x DIFF_FD_LANES lanes: v0 (the tangent's), v0 + ε and
+    # v0 − ε (the lanes are independent: three solves took 130 s, PR 12)
+    sph = models.get_mechanism("sphere", timestep=0.01, device=dev)
+    s_one = models.initialize(sph, "sphere", position=(0, 0, 0.52), velocity=(1, 0, 0))
+    n = DIFF_FD_LANES
+    s_lanes = tensor_map(lambda a: a.expand(3 * n, *a.shape).contiguous(), s_one)
+    sph_opts = SolverOptions(rtol=1e-8, btol=1e-8, max_iter=DIFF_FD_ITERS)
+    sph_step = make_diff_step(sph.topo, sph_opts, device=dev)
+    v0 = torch.linspace(0.5, 2.0, n, dtype=torch.float64, device=dev)
+
+    def out(v):
+        vel = torch.cat([v[:, None, None], s_lanes.v[..., 1:]], dim=-1)
+        return sph_step(sph.params, dataclasses.replace(s_lanes, v=vel)).pack()
+
+    v_all = torch.cat([v0, v0 + DIFF_FD_EPS, v0 - DIFF_FD_EPS])
+    z, dz = torch.func.jvp(out, (v_all,), (torch.cat([torch.ones_like(v0),
+                                                      torch.zeros(2 * n, dtype=v0.dtype,
+                                                                  device=dev)]),))
+    jv, fd = dz[:n], (z[n : 2 * n] - z[2 * n :]) / (2 * DIFF_FD_EPS)
+    err_fd = (jv - fd).abs().max().item()
+    errors["d"] = dict(lanes=DIFF_FD_LANES, max_abs_err=err_fd, atol=DIFF_FD_ATOL,
+                       jvp_abs_max=jv.abs().max().item())
+    lap("d")
+    check(bool(torch.isfinite(jv).all()) and err_fd < DIFF_FD_ATOL,
+          f"diff (d): sphere jvp against central differences {err_fd} (atol {DIFF_FD_ATOL})")
+
+    launches = launch_counts()
+    emit("diff", model="quadruped", B=B, T=T, h=0.05, dtype="float32", B64=DIFF_B64,
+         T64=DIFF_T64,
+         seconds=seconds, errors=errors, launches=launches)
+    for name, c in launches.items():
+        check(c > 0, f"diff: kernel {name} was not launched in the phase")
+    return row_launch_counts()
+
+
 def main():
     import torch
 
@@ -1142,15 +1362,19 @@ def main():
     check(bool(info64.success[0]) and dx < 1e-5 and dv < 2e-4,
           f"card step disagrees with the float64 reference: dx={dx} dv={dv}")
 
-    launches_mpc, shared_rows = mpc_phase()
+    # the control step at half bench.py's horizon (printed as reduced): the
+    # call's 1,200 s hold the diff phase too (PR 12: ~1,080 s at H=40)
+    launches_mpc, shared_rows = mpc_phase(H=MPC_H // 2)
     table.update(shared_rows)
     zoo_launches, zoo_rows = zoo_phase()
     table.update(zoo_rows)
+    diff_launches = diff_phase()
     for row in table.values():
         kernel = row.get("class_row", row["name"])  # the kernel the row times
         row["launches"] = rows_steps[kernel]
         row["launches_mpc"] = launches_mpc[kernel]
         row["launches_zoo"] = zoo_launches[kernel]
+        row["launches_diff"] = diff_launches[kernel]
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

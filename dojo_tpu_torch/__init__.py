@@ -2,7 +2,8 @@
 
 Differentiable maximal-coordinate contact physics with a Mehrotra
 interior-point solver over a graph-sparse block LDU, whose three kernels
-(factorize, solve, matvec) are hand-written CUDA for Hopper (csrc/ldu.cu).
+(factorize, solve, matvec) are hand-written CUDA for Hopper (csrc/ldu.cu),
+and implicit-function-theorem gradients through contact.
 Imports torch and numpy only — never JAX, never dojo_tpu.  Entry points run
 on CUDA unless given ``device="cpu"``.
 
@@ -13,3 +14,30 @@ on CUDA unless given ``device="cpu"``.
     state = models.initialize(mech, "quadruped")
     step = make_step(mech.topo, SolverOptions())
 """
+
+from . import lie, mechanics, minimal, models, mpc, urdf
+from .builder import (
+    Body,
+    ContactDef,
+    JointDef,
+    Mechanism,
+    box_body,
+    build,
+    cylinder_body,
+    sphere_body,
+)
+from .contacts import signed_distances
+from .core import REG, BodyState, Params, SolverOptions, Topology
+from .gradients import (
+    attitude_jacobian,
+    finite_difference_jacobian,
+    make_diff_step,
+    make_diff_step_minimal,
+    make_rollout_linearize_minimal,
+    maximal_jacobians,
+    maximal_jacobians_attjac,
+    minimal_jacobians,
+)
+from .residual import make_context, make_residual, pad_inputs
+from .simulate import StepInfo, Trajectory, make_simulate, make_step
+from .solver import SolveResult, make_solver

@@ -6,6 +6,9 @@ kind of the masked joint kernel (floating
 base, revolute, ...), sphere–halfspace contacts, joint limits, springs,
 dampers and spring offsets.  Everything is computed host-side in numpy
 float64 and moved to the device once, as one tensor per Params field.
+``Mechanism`` also carries dojo_tpu's surface: step and simulate, the
+parameters by body, joint or contact name, the flat data vector, and the
+minimal ↔ maximal state maps.
 """
 
 from __future__ import annotations
@@ -17,7 +20,19 @@ import numpy as np
 import torch
 
 from . import lie, nplie
-from .core import CONTACT_WIDTH, BodyState, Params, Topology, resolve_device, tensor_map
+from .core import (
+    CONTACT_WIDTH,
+    BodyState,
+    Params,
+    SolverOptions,
+    Topology,
+    resolve_device,
+    tensor_map,
+)
+from .gradients import to_maximal, to_minimal
+from .minimal import maximal_to_minimal, minimal_to_maximal, set_joint_minimal
+from .residual import pad_inputs
+from .simulate import Trajectory, make_simulate, make_step
 
 # joint kind → (Nλ_tra, Nλ_rot)
 KIND_NLAM = {
@@ -144,6 +159,173 @@ class Mechanism:
     @property
     def dtype(self) -> torch.dtype:
         return self.params.mass.dtype
+
+    @property
+    def input_dim(self) -> int:
+        return self.topo.input_dim
+
+    @property
+    def minimal_dim(self) -> int:
+        return self.topo.minimal_dim
+
+    @property
+    def timestep(self) -> float:
+        return float(self.params.timestep)
+
+    def _cached(self, key, make):
+        cache = self.__dict__.setdefault("_fn_cache", {})
+        if key not in cache:
+            cache[key] = make()
+        return cache[key]
+
+    def _lanes(self, state):
+        """(state with a lane axis, whether one was added)."""
+        if state.x.ndim == 2:
+            return tensor_map(lambda a: a[None], state), True
+        return state, False
+
+    def step(self, state, u=None, opts=None, params=None):
+        """One simulation step (maximal in and out): (state', StepInfo).
+
+        state: (nb, k) fields, or (B, nb, k) for B lanes; u: packed inputs
+        (input_dim,) or (B, input_dim), or None."""
+        opts = opts or SolverOptions()
+        fn = self._cached(("step", opts), lambda: make_step(self.topo, opts, self.device))
+        state, one = self._lanes(state)
+        up = None
+        if u is not None:
+            u = torch.as_tensor(u, dtype=self.dtype, device=self.device)
+            up = pad_inputs(self.topo, u.expand(state.x.shape[0], self.input_dim))
+        nxt, info = fn(self.params if params is None else params, state, up)
+        if one:
+            nxt, info = tensor_map(lambda a: a[0], nxt), tensor_map(lambda a: a[0], info)
+        return nxt, info
+
+    def simulate(self, state, horizon, us=None, opts=None, params=None):
+        """Rollout for ``horizon`` steps → (final state, Trajectory);
+        us: packed inputs (T, input_dim) or (T, B, input_dim), or None.  A
+        state without a lane axis gives a trajectory without one."""
+        opts = opts or SolverOptions()
+        fn = self._cached(("simulate", opts), lambda: make_simulate(self.topo, opts, self.device))
+        state, one = self._lanes(state)
+        if us is not None:
+            us = torch.as_tensor(us, dtype=self.dtype, device=self.device)
+            us = us[:, None] if us.ndim == 2 else us
+            us = pad_inputs(self.topo, us.expand(-1, state.x.shape[0], -1))
+        final, traj = fn(self.params if params is None else params, state, us, horizon=horizon)
+        if one:
+            drop = lambda a: a[:, 0]
+            final = tensor_map(lambda a: a[0], final)
+            traj = Trajectory(*(drop(getattr(traj, f)) for f in "xqvw"),
+                              info=tensor_map(drop, traj.info))
+        return final, traj
+
+    # -- parameter get/set by name ----------------------------------------------
+    _BODY_FIELDS = {"mass": "mass", "inertia": "inertia"}
+    _JOINT_FIELDS = {
+        "spring": ("tra_spring", "rot_spring"),
+        "damper": ("tra_damper", "rot_damper"),
+        "parent_vertex": ("tra_vertex_parent",),
+        "child_vertex": ("tra_vertex_child",),
+        "orientation_offset": ("rot_offset",),
+    }
+    _CONTACT_FIELDS = {
+        "friction": "contact_friction",
+        "origin": "contact_origin",
+        "radius": "contact_radius",
+        "offset": "contact_offset",
+    }
+
+    def get_body(self, name):
+        """A body's parameters by name: {mass, inertia}."""
+        i = self.body_index[name]
+        return {k: getattr(self.params, f)[i] for k, f in self._BODY_FIELDS.items()}
+
+    def get_joint(self, name):
+        i = self.joint_index[name]
+        return {k: getattr(self.params, fs[0])[i] for k, fs in self._JOINT_FIELDS.items()}
+
+    def get_contact(self, name):
+        i = self.contact_names.index(name)
+        return {k: getattr(self.params, f)[i] for k, f in self._CONTACT_FIELDS.items()}
+
+    def _set_rows(self, index, mapping, kwargs):
+        p = self.params
+        for k, v in kwargs.items():
+            fields = mapping[k]
+            for f in (fields,) if isinstance(fields, str) else fields:
+                arr = getattr(p, f).clone()
+                arr[index] = torch.as_tensor(v, dtype=arr.dtype, device=arr.device)
+                p = dataclasses.replace(p, **{f: arr})
+        return p
+
+    def set_body(self, name, **kwargs):
+        """Update a body's rows (new tensors); stores and returns the Params."""
+        self.params = self._set_rows(self.body_index[name], self._BODY_FIELDS, kwargs)
+        return self.params
+
+    def set_joint(self, name, **kwargs):
+        self.params = self._set_rows(self.joint_index[name], self._JOINT_FIELDS, kwargs)
+        return self.params
+
+    def set_contact(self, name, **kwargs):
+        self.params = self._set_rows(self.contact_names.index(name), self._CONTACT_FIELDS,
+                                     kwargs)
+        return self.params
+
+    # -- the flat data vector of the physical parameters -------------------------
+    # dojo_tpu's order, so that one vector means the same in both packages
+    _DATA_FIELDS = (
+        "mass", "inertia",
+        "tra_spring", "tra_damper", "tra_vertex_parent", "tra_vertex_child",
+        "tra_spring_offset", "rot_spring", "rot_damper", "rot_offset",
+        "rot_spring_offset",
+        "contact_friction", "contact_radius", "contact_origin",
+        "contact_offset", "contact_child_origin", "contact_child_radius",
+        "contact_aux", "gravity", "timestep",
+    )
+
+    def get_data(self, params=None):
+        """Flat vector of every physical parameter (masses, inertias, joint
+        springs, dampers, vertices and offsets, contact geometry and
+        friction, gravity, timestep) in ``_DATA_FIELDS`` order."""
+        p = self.params if params is None else params
+        return torch.cat([getattr(p, f).reshape(-1) for f in self._DATA_FIELDS])
+
+    def with_data(self, vec, params=None):
+        """get_data's inverse: Params with the flat vector scattered back into
+        the physical fields, differentiably (for system identification over
+        the whole vector inside a loss)."""
+        p = self.params if params is None else params
+        out, i = {}, 0
+        for f in self._DATA_FIELDS:
+            a = getattr(p, f)
+            out[f] = vec[i : i + a.numel()].reshape(a.shape).to(a.dtype)
+            i += a.numel()
+        return dataclasses.replace(p, **out)
+
+    def set_data(self, vec):
+        """Store the Params of a data vector; returns them."""
+        self.params = self.with_data(vec)
+        return self.params
+
+    def minimal_state(self, state):
+        """Minimal coordinates of a state, (ny,) or (B, ny) with lanes."""
+        if state.x.ndim == 2:
+            return maximal_to_minimal(self.topo, self.params, state)
+        return to_minimal(self.topo, self.params, state)
+
+    def maximal_state(self, y):
+        """The maximal state of minimal coordinates y, (ny,) or (B, ny)."""
+        if y.ndim == 1:
+            return minimal_to_maximal(self.topo, self.params, y)
+        return to_maximal(self.topo, self.params, y)
+
+    def set_minimal(self, state, joint, coords=None, velocities=None):
+        """A state with one joint's (index or name) minimal coordinates and/or
+        velocities overwritten (one state, no lane axis)."""
+        j = joint if isinstance(joint, int) else self.joint_index[joint]
+        return set_joint_minimal(self.topo, self.params, state, j, coords, velocities)
 
     def cast(self, dtype) -> "Mechanism":
         """Cast the floating-point params to ``dtype``.  Mutates and returns

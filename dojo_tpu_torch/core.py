@@ -19,6 +19,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 # Jacobian regularization, load-bearing (reference REG=1e-10).
 REG = 1.0e-10
@@ -197,6 +198,23 @@ class BodyState:
     def unpack(cls, z: torch.Tensor, nb: int) -> "BodyState":
         z = z.reshape(*z.shape[:-1], nb, 13)
         return cls(x=z[..., 0:3], v=z[..., 3:6], q=z[..., 6:10], w=z[..., 10:13])
+
+
+def _register_pytree(cls):
+    """Make a dataclass of tensors a pytree node, so that torch.func's
+    jvp/vjp take tangents and cotangents over it, field by field."""
+    names = [f.name for f in dataclasses.fields(cls)]
+    pytree.register_pytree_node(
+        cls,
+        lambda obj: ([getattr(obj, n) for n in names], None),
+        lambda values, _: cls(*values),
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}",
+    )
+    return cls
+
+
+_register_pytree(Params)
+_register_pytree(BodyState)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,10 @@
-"""The batched one-step function (counterpart of dojo_tpu/simulate.py make_step).
+"""The batched one-step function and rollouts (counterpart of
+dojo_tpu/simulate.py).
 
 ``make_step(topo, opts)`` returns step(params, state, u, fext, text, w_prev)
 for a batch of lanes: state fields are (B, nb, k), u (B, nj, 6) padded per
-joint (see residual.pad_inputs) or None.
+joint (see residual.pad_inputs) or None.  ``make_simulate`` rolls it out
+and records a time-major ``Trajectory``.
 """
 
 from __future__ import annotations
@@ -80,3 +82,47 @@ def make_step(topo: Topology, opts: SolverOptions = SolverOptions(), device=None
 
     step.init_w = init_w
     return step
+
+
+@dataclasses.dataclass
+class Trajectory:
+    """A recorded rollout, time-major: x, q, v, w (T, B, nb, k) are the
+    state *before* each step; info holds each step's StepInfo stacked,
+    fields (T, B, ...)."""
+
+    x: torch.Tensor
+    q: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    info: StepInfo
+
+
+def make_simulate(topo: Topology, opts: SolverOptions = SolverOptions(), device=None):
+    """Returns simulate(params, state0, us=None, horizon=None, warm_start=False)
+    -> (final state, Trajectory); ``device=None`` means CUDA.
+
+    us: (T, B, nj, 6) padded inputs, or None with ``horizon`` steps of no
+    input.  warm_start: each step warm-starts from the previous step's
+    solution, the first from the cone-neutral init of state0 (so that it
+    equals a cold solve up to the warm floor)."""
+    step = make_step(topo, opts, device=device)
+
+    def simulate(params: Params, state0: BodyState, us=None, horizon: int = None,
+                 warm_start: bool = False):
+        if us is None:
+            if horizon is None:
+                raise ValueError("simulate needs us or horizon")
+            us = [None] * horizon
+        w_prev = step.init_w(state0.v, state0.w, params) if warm_start else None
+        state, pre, infos = state0, [], []
+        for u in us:
+            pre.append(state)
+            state, info = step(params, state, u, w_prev=w_prev)
+            if warm_start:
+                w_prev = info.w
+            infos.append(info)
+        stack = lambda objs, f: torch.stack([getattr(o, f) for o in objs])
+        info = StepInfo(**{f.name: stack(infos, f.name) for f in dataclasses.fields(StepInfo)})
+        return state, Trajectory(*(stack(pre, f) for f in "xqvw"), info=info)
+
+    return simulate

@@ -335,7 +335,7 @@ def make_solver(topo: Topology, device=None, linsolve: str = "auto"):
                     return L.nodes_to_flat(dsched.plan, x, D).to(wdtype)
 
             else:
-                J = local_jacobian(lambda u: res_fn(u, ctx, params, mu_asm), w, chunk_size=64)
+                J = local_jacobian(lambda u: res_fn(u, ctx, params, mu_asm), w)
                 J = J + REG * torch.eye(D, dtype=wdtype, device=w.device)
                 LU, piv = torch.linalg.lu_factor(J)
 
@@ -367,13 +367,15 @@ def make_solver(topo: Topology, device=None, linsolve: str = "auto"):
 
         return body
 
-    def run(body, opts, done0, w0, rv0, bv0):
+    def start(opts, done0, w0, rv0, bv0):
+        """The per-lane state tuple before the first iteration."""
         B = w0.shape[0]
-        st = (
-            w0, rv0, bv0, w0.new_zeros(B), w0.new_full((B,), opts.undercut),
-            torch.zeros(B, dtype=torch.int32, device=w0.device),
-            torch.zeros(B, dtype=torch.int32, device=w0.device), done0,
-        )
+        zeros = torch.zeros(B, dtype=torch.int32, device=w0.device)
+        return (w0, rv0, bv0, w0.new_zeros(B), w0.new_full((B,), opts.undercut), zeros,
+                zeros, done0)
+
+    def run(body, opts, done0, w0, rv0, bv0):
+        st = start(opts, done0, w0, rv0, bv0)
         while True:
             active = (~st[7]) & (st[6] < opts.max_iter)
             if not bool(active.any()):
@@ -414,4 +416,31 @@ def make_solver(topo: Topology, device=None, linsolve: str = "auto"):
         out.rescued[failed] = res2.success
         return out
 
+    def solve_traced(w0, ctx: StepContext, params: Params, opts: SolverOptions):
+        """solve() with a per-iteration record: a fixed max_iter loop of the
+        same iteration, with finished lanes frozen and no host check between
+        iterations (the line search still checks its rounds).  Returns
+        (SolveResult, trace): trace holds (max_iter, B) tensors rvio, bvio,
+        mu, undercut and valid (the lane iterated).  No dense rescue runs
+        (``rescued`` is all False); lanes that solve() does not rescue get
+        its result."""
+        rvw = rvio_weights(params)
+        oact = ort_activity(params)
+        rv0, bv0 = violations(w0, ctx, params, rvw, oact)
+        st = start(opts, (rv0 < opts.rtol) & (bv0 < opts.btol), w0, rv0, bv0)
+        body = make_iteration(ctx, params, opts)
+        rec = {k: [] for k in ("rvio", "bvio", "mu", "undercut", "valid")}
+        for _ in range(opts.max_iter):
+            done_in = st[7]
+            st = tuple(_where(done_in, o, n) for n, o in zip(body(st), st))
+            for k, v in zip(("rvio", "bvio", "mu", "undercut"), st[1:5]):
+                rec[k].append(v)
+            rec["valid"].append(~done_in)
+        w, rvio, bvio, mu, _, _, it, _ = st
+        success = (rvio < opts.rtol) & (bvio < opts.btol)
+        res = SolveResult(w, success, it, rvio, bvio, mu, torch.zeros_like(success))
+        return res, {k: torch.stack(v) for k, v in rec.items()}
+
+    solve.make_iteration = make_iteration
+    solve.traced = solve_traced
     return init_w, solve, violations

@@ -90,7 +90,7 @@ def test_jacobian_matches(case):
     rescue's matrix) against jax.jacfwd."""
     tm = case["tm"]
     res = make_residual(tm.topo, "cpu")
-    J = local_jacobian(lambda u: res(u, case["ctx"], tm.params, case["mu"]), case["w"], chunk_size=64)
+    J = local_jacobian(lambda u: res(u, case["ctx"], tm.params, case["mu"]), case["w"])
     assert J.shape == (B, 356, 356)
     np.testing.assert_allclose(J.numpy(), case["ref"]["J"], rtol=0, atol=1e-9)
 
