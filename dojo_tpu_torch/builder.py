@@ -29,10 +29,6 @@ from .core import (
     resolve_device,
     tensor_map,
 )
-from .gradients import to_maximal, to_minimal
-from .minimal import maximal_to_minimal, minimal_to_maximal, set_joint_minimal
-from .residual import pad_inputs
-from .simulate import Trajectory, make_simulate, make_step
 
 # joint kind → (Nλ_tra, Nλ_rot)
 KIND_NLAM = {
@@ -189,6 +185,9 @@ class Mechanism:
 
         state: (nb, k) fields, or (B, nb, k) for B lanes; u: packed inputs
         (input_dim,) or (B, input_dim), or None."""
+        from .residual import pad_inputs
+        from .simulate import make_step
+
         opts = opts or SolverOptions()
         fn = self._cached(("step", opts), lambda: make_step(self.topo, opts, self.device))
         state, one = self._lanes(state)
@@ -205,6 +204,9 @@ class Mechanism:
         """Rollout for ``horizon`` steps → (final state, Trajectory);
         us: packed inputs (T, input_dim) or (T, B, input_dim), or None.  A
         state without a lane axis gives a trajectory without one."""
+        from .residual import pad_inputs
+        from .simulate import Trajectory, make_simulate
+
         opts = opts or SolverOptions()
         fn = self._cached(("simulate", opts), lambda: make_simulate(self.topo, opts, self.device))
         state, one = self._lanes(state)
@@ -311,12 +313,18 @@ class Mechanism:
 
     def minimal_state(self, state):
         """Minimal coordinates of a state, (ny,) or (B, ny) with lanes."""
+        from .gradients import to_minimal
+        from .minimal import maximal_to_minimal
+
         if state.x.ndim == 2:
             return maximal_to_minimal(self.topo, self.params, state)
         return to_minimal(self.topo, self.params, state)
 
     def maximal_state(self, y):
         """The maximal state of minimal coordinates y, (ny,) or (B, ny)."""
+        from .gradients import to_maximal
+        from .minimal import minimal_to_maximal
+
         if y.ndim == 1:
             return minimal_to_maximal(self.topo, self.params, y)
         return to_maximal(self.topo, self.params, y)
@@ -324,6 +332,8 @@ class Mechanism:
     def set_minimal(self, state, joint, coords=None, velocities=None):
         """A state with one joint's (index or name) minimal coordinates and/or
         velocities overwritten (one state, no lane axis)."""
+        from .minimal import set_joint_minimal
+
         j = joint if isinstance(joint, int) else self.joint_index[joint]
         return set_joint_minimal(self.topo, self.params, state, j, coords, velocities)
 

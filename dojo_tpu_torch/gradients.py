@@ -187,12 +187,11 @@ class _Ift:
         self.res_fn = Residual(topo, device)
 
     def solve_cold(self, params: Params, state: BodyState, u):
-        """(w*, μ_f) per lane from the cone-neutral init, as make_step's
-        step without a warm start; builds no autograd graph."""
+        """The solver's result per lane from the cone-neutral init, as
+        make_step's step without a warm start; builds no autograd graph."""
         with torch.no_grad():
             ctx = make_context(self.topo, state, params, u)
-            res = self.solve(self.init_w(state.v, state.w, params), ctx, params, self.opts)
-        return res.w, res.mu
+            return self.solve(self.init_w(state.v, state.w, params), ctx, params, self.opts)
 
     def r_of(self, w, mu):
         """θ = (params, state, u) ↦ r(w; θ, μ) at a fixed (w, μ)."""
@@ -211,7 +210,8 @@ class _Ift:
         topo, h = self.topo, params.timestep
         with torch.no_grad():
             state, u = to_state(x), pad_inputs(topo, u_packed)
-            w, mu = self.solve_cold(params, state, u)
+            res = self.solve_cold(params, state, u)
+            w, mu = res.w, res.mu
             LU, piv = self.factor((params, state, u), w, mu)
 
             def r_of(x_, u_):
@@ -226,21 +226,23 @@ class _Ift:
 
 
 class _FixedPoint(torch.autograd.Function):
-    """(w*, μ_f) = the solver's solution for the pytree θ = (params, state,
-    u), given flat (apply sends gradients only to tensors passed directly);
-    μ_f is not differentiable.  Tangents and cotangents go through the IFT
-    at (w*, μ_f) with one dense LU of J + REG·I a call."""
+    """(w*, μ_f, success, rescued, iterations) = the solver's solution and
+    status for the pytree θ = (params, state, u), given flat (apply sends
+    gradients only to tensors passed directly); only w* is differentiable.
+    Tangents and cotangents go through the IFT at (w*, μ_f) with one dense
+    LU of J + REG·I a call."""
 
     @staticmethod
     def forward(ift, spec, *leaves):
         params, state, u = pytree.tree_unflatten(list(leaves), spec)
-        return ift.solve_cold(params, state, u)
+        res = ift.solve_cold(params, state, u)
+        return res.w, res.mu, res.success, res.rescued, res.iterations
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ift, spec, *leaves = inputs
-        w, mu = output
-        ctx.mark_non_differentiable(mu)
+        w, mu, *status = output
+        ctx.mark_non_differentiable(mu, *status)
         ctx.ift, ctx.spec = ift, spec
         ctx.save_for_backward(*leaves, w, mu)
         ctx.save_for_forward(*leaves, w, mu)
@@ -254,10 +256,10 @@ class _FixedPoint(torch.autograd.Function):
         rdot = torch.func.jvp(ctx.ift.r_of(w, mu), tuple(theta), tuple(dtheta))[1]
         LU, piv = ctx.ift.factor(theta, w, mu)
         wdot = -torch.linalg.lu_solve(LU, piv, rdot[..., None])[..., 0]
-        return wdot, None
+        return wdot, None, None, None, None
 
     @staticmethod
-    def backward(ctx, gw, _gmu):
+    def backward(ctx, gw, *_):
         *leaves, w, mu = ctx.saved_tensors
         theta = pytree.tree_unflatten(leaves, ctx.spec)
         LU, piv = ctx.ift.factor(theta, w, mu)
@@ -270,23 +272,31 @@ class _FixedPoint(torch.autograd.Function):
 
 
 def make_diff_step(topo: Topology, opts: SolverOptions = SolverOptions(), device=None):
-    """Returns a differentiable step(params, state, u=None) → BodyState;
-    ``device=None`` means CUDA.
+    """Returns a differentiable step(params, state, u=None, stats=None) →
+    BodyState; ``device=None`` means CUDA.
 
     state (B, nb, k), u (B, nj, 6) padded per joint (residual.pad_inputs)
     or None for no input.  Each lane is solved cold (the cone-neutral init),
     as make_step's step without w_prev.  Gradients flow into params
     (system identification), state and u (dynamics Jacobians), by
     ``backward`` and by ``torch.func.jvp``.  Do not vmap it: the solver
-    syncs with the host.
+    syncs with the host.  ``stats``, a dict, accumulates the solve's counts
+    as integers: solves, lanes, Newton iterations (summed over lanes),
+    lanes finished by the dense rescue and lanes that did not converge
+    (whose next state is no solution's and whose gradient no derivative).
     """
     ift = _Ift(topo, opts, resolve_device(device))
 
-    def step(params: Params, state: BodyState, u=None) -> BodyState:
+    def step(params: Params, state: BodyState, u=None, stats=None) -> BodyState:
         if u is None:
             u = state.x.new_zeros(*state.x.shape[:-2], topo.nj, 6)
         leaves, spec = pytree.tree_flatten((params, state, u))
-        w, _ = _FixedPoint.apply(ift, spec, *leaves)
+        w, _, success, rescued, iterations = _FixedPoint.apply(ift, spec, *leaves)
+        if stats is not None:
+            for key, val in (("solves", 1), ("lanes", w.shape[0]),
+                             ("iterations", int(iterations.sum())),
+                             ("rescued", int(rescued.sum())), ("failed", int((~success).sum()))):
+                stats[key] = stats.get(key, 0) + val
         return next_state(topo, state, w, params.timestep)
 
     return step
@@ -294,11 +304,11 @@ def make_diff_step(topo: Topology, opts: SolverOptions = SolverOptions(), device
 
 def make_diff_step_minimal(topo: Topology, opts: SolverOptions = SolverOptions(), device=None):
     """Differentiable minimal-coordinate dynamics y' = f(params, y, u_packed),
-    y (B, ny), u_packed (B, nu)."""
+    y (B, ny), u_packed (B, nu); ``stats`` as make_diff_step's."""
     step = make_diff_step(topo, opts, device)
 
-    def step_min(params: Params, y, u_packed):
-        state = step(params, to_maximal(topo, params, y), pad_inputs(topo, u_packed))
+    def step_min(params: Params, y, u_packed, stats=None):
+        state = step(params, to_maximal(topo, params, y), pad_inputs(topo, u_packed), stats)
         return to_minimal(topo, params, state)
 
     return step_min

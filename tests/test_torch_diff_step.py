@@ -186,6 +186,27 @@ def test_next_state_matches_reference(pend):
         assert np.abs(np.asarray(r0)).max() < 1e-10, b
 
 
+def test_stats_count_the_forward_solves(pend):
+    """``stats`` counts the diff step's solves as make_step's StepInfo
+    reports them, under backward and under torch.func.jvp alike; a solve
+    stopped short of its tolerance counts as failed."""
+    mech = pend["mech"]
+    state = to_maximal(mech.topo, mech.params, pend["y"])
+    up = pad_inputs(mech.topo, pend["u"])
+    for opts, failed in ((pend["opts"], 0), (dataclasses.replace(pend["opts"], max_iter=1), 3)):
+        _, info = make_step(mech.topo, opts, device="cpu")(mech.params, state, up)
+        assert int((~info.success).sum()) == failed
+        want = dict(solves=2, lanes=6, iterations=2 * int(info.iterations.sum()),
+                    rescued=0, failed=2 * failed)
+        step = make_diff_step_minimal(mech.topo, opts, device="cpu")
+        stats = {}
+        u = pend["u"].clone().requires_grad_()
+        step(mech.params, pend["y"], u, stats).sum().backward()
+        torch.func.jvp(lambda a: step(mech.params, pend["y"], a, stats), (pend["u"],),
+                       (torch.ones_like(pend["u"]),))
+        assert stats == want, (stats, want)
+
+
 def test_minimal_jacobians_match_reference(pend):
     A, B = minimal_jacobians(pend["mech"].topo, pend["opts"], device="cpu")(
         pend["mech"].params, pend["y"], pend["u"])

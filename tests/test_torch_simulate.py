@@ -8,12 +8,11 @@ make_step runs around them, as tests/test_torch_zoo_step.py does; the
 rollout reference steps it as dojo_tpu's make_simulate scans it (cold: no
 w_prev; warm: the cone-neutral init of the first state, then each step's
 solution), recording the pre-step state, so that one solver compile
-serves both.  Those comparisons with dojo_tpu (each model's solver compile
-costs a minute of the tier-1 clock), dojo_tpu's solve.traced and its
-jitted make_simulate are marked slow and run by hand; tier-1 holds
-make_simulate to make_step stepped by hand (which
-tests/test_torch_zoo_step.py holds to dojo_tpu's), solve.traced to solve,
-and the Mechanism surface to dojo_tpu's.
+serves both.  Tier-1 holds the pendulum's rollouts and solve.traced to
+dojo_tpu's, make_simulate to make_step stepped by hand, solve.traced to
+solve, and the Mechanism surface to dojo_tpu's; the cartpole's rollouts
+and dojo_tpu's jitted make_simulate (a scan of the whole rollout), whose
+compiles take minutes, are marked slow and run by hand.
 
 Tolerances: w within 1e-12 of its scale (max(1, |w|)) for the solve, the
 states within 1e-10 and each StepInfo field within 1e-10 of its scale for
@@ -51,7 +50,7 @@ LANES = {  # initializer arguments of each model's three lanes
     "cartpole": [dict(position=0.0, orientation=0.3), dict(position=0.2, orientation=-0.5),
                  dict(position=-0.1, orientation=1.0)],
 }
-MODELS = ["pendulum", "cartpole"]
+MODELS = ["pendulum", pytest.param("cartpole", marks=pytest.mark.slow)]
 # the cartpole's second input coordinate is its pole joint's: inputs on both
 U = {"pendulum": [0.4], "cartpole": [1.5, -0.2]}
 
@@ -127,7 +126,6 @@ def rollouts(request):
     return name, out
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 def test_simulate_matches_reference(rollouts, warm):
     name, out = rollouts
@@ -145,7 +143,6 @@ def test_simulate_matches_reference(rollouts, warm):
     assert bool(traj.info.success.all())
 
 
-@pytest.mark.slow
 def test_warm_start_saves_iterations(rollouts):
     """The warm chain takes no more Newton iterations than the cold one."""
     _, out = rollouts
@@ -156,8 +153,7 @@ def test_warm_start_saves_iterations(rollouts):
 def test_simulate_steps_as_make_step():
     """make_simulate over 5 steps, cold and warm, equals make_step stepped
     by hand: the pre-step states, each StepInfo, the final state, and the
-    warm chain's first w_prev from init_w (the tier-1 check; dojo_tpu's
-    rollouts over 20 steps are the slow tests above)."""
+    warm chain's first w_prev from init_w."""
     jm = jmodels.get_mechanism("pendulum")
     mech = port_mechanism(jm, "pendulum")
     state = lanes(mech, "pendulum")
@@ -209,7 +205,6 @@ def test_traced_matches_solve(traced):
     assert not bool(res_t.rescued.any())
 
 
-@pytest.mark.slow
 def test_traced_matches_reference(traced):
     """The port's trace against dojo_tpu's solve.traced, lane by lane."""
     jm, state, _, res_t, trace, opts = traced
