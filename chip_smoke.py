@@ -5,7 +5,10 @@
 
 Phases, each printed as one JSON line with elapsed seconds:
   device   — card name, and name + power limit from nvidia-smi;
-  build    — nvcc build of dojo_tpu_torch/csrc/ldu.cu (first use);
+  build    — nvcc builds of dojo_tpu_torch/csrc/ldu.cu and csrc/ldu_lane.cu
+             (the kernels for a lane over a CTA), each for float32 and for
+             float64, the four nvcc processes at once, with each one's
+             seconds;
   kernels  — the three block-LDU kernels against their plain PyTorch
              versions on the quadruped KKT at B=256, float32 (factorize
              also on L·U = PS·D, and each block LU bitwise against the
@@ -50,19 +53,32 @@ Phases, each printed as one JSON line with elapsed seconds:
              u=None), each from its initial state: the model's KKT through
              its width class's kernels (W ≤ 16, 17–32, 33–72) against the
              plain versions, with times and bounds, then ZOO_K timed steps
+             (on ZOO_FAILS_B lanes for the six models dojo_tpu fails too)
              with success, Newton iterations, rescued lanes, steps/s and
-             the launches of each kernel of the class; then (zoo_kkt)
+             the launches of each kernel of the class;
+             then (zoo_kkt)
              humanoid's and block's KKTs in float64 (their lanes fit a CTA
-             only at the factorize's real widths) and twister's in float32
-             through their class's kernels against the plain versions,
-             block LUs bitwise, with times and both bounds.
+             only at the factorize's real widths), twister's in float32,
+             and those of the ten other scheduled models of dojo_tpu's zoo
+             (quadrotor and block2d on 33–72, uuv on 17–32) through their
+             class's kernels against the plain versions, block LUs bitwise,
+             with times and both bounds.
+  atlas    — atlas's drop (a lane over a CTA's shared memory): its KKT
+             through the kernels of csrc/ldu_lane.cu against the plain
+             versions (float32, B=64, kernels-line rows factorize_lane,
+             solve_lane, matvec_lane; float64, B=8, atlas_kkt); then one
+             float32 step on 8 lanes (not gated: dojo_tpu fails it too) and
+             ATLAS_K float64 steps on 32 lanes held to success, the
+             smallest signed distance and finite states.
   diff     — the differentiable step (gradients.make_diff_step*: the IFT
              as a torch.autograd.Function) on the quadruped at bench.py's
-             options, float32, B=64 lanes with their own inputs, T=3 steps:
-             (a) backward into every step's inputs, contact_friction and
-             mass, every lane of every forward solve converged (rescued
-             lanes counted); (b) forward mode (torch.func.jvp) against (a)
-             along a seeded direction, also in float64 on 8 lanes; (c)
+             options, float32, B=64 lanes with their own inputs, T=2
+             steps: (a) backward into every step's inputs,
+             contact_friction and mass, every lane of every forward solve
+             converged (rescued lanes counted); (b) forward mode
+             (torch.func.jvp) over the first step against the reverse mode
+             of the same loss along a seeded direction, also in float64 on
+             8 lanes; (c)
              minimal_jacobians (dense LU) against linearize (the k = 54
              shared-factor kernels) at step 1's solution, on its 64 lanes,
              the rescued ones reported apart; (d) the sphere's jvp in v0
@@ -75,7 +91,8 @@ and the rows solve_shared and matvec_shared of k = 54 right-hand sides a
 factorization, with the launches of each row's kernel on the steps chains,
 in the control step as launches_mpc, in the zoo's timed steps as
 launches_zoo (the class's, over every model; launches_zoo_model: on the
-row's model) and in the diff phase as launches_diff; bound_ms counts
+row's model), in the atlas phase's steps as launches_atlas and in the diff
+phase as launches_diff; bound_ms counts
 W-wide blocks, bound_ms_real each node's real width), the nvidia-smi line,
 and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the exit code is
@@ -119,14 +136,45 @@ ZOO_REFERENCE_FAILS = frozenset({"npendulum", "snake", "hopper", "halfcheetah", 
                                  "humanoid"})
 # the model whose KKT times each width class's kernels in the kernels line
 CLASS_MODEL = {"w16": "quadruped", "w32": "humanoid", "w72": "block"}
-CLASS_NAME = {"w16": "", "w32": "_w17_32", "w72": "_w33_72"}
+CLASS_NAME = {"w16": "", "w32": "_w17_32", "w72": "_w33_72", "lane": "_lane"}
 # further models whose KKT times their class's kernels, with rows of their
 # own (<kernel><class>_<model>): walker's nodes are 14 wide, humanoid's 6
 ROW_MODELS = {"walker": "w32"}
 # KKTs the zoo phase also holds to the plain versions: humanoid's and
 # block's lanes in float64 (they fit a CTA only at real widths), twister
-# (W=22, not in bench_zoo's models)
-ZOO_KKT_EXTRA = (("humanoid", "float64"), ("block", "float64"), ("twister", "float32"))
+# (W=22, not in bench_zoo's models), and the models of dojo_tpu's zoo that
+# are not in bench_zoo's and have an elimination schedule (fourbar's loop
+# has none): quadrotor (W=70) and block2d (W=38) on the 33..72 kernels, uuv
+# (W=22) on the 17..32 kernels, the rest on the W <= 16 kernels (atlas: the
+# atlas phase)
+ZOO_KKT_EXTRA = (("humanoid", "float64"), ("block", "float64"), ("twister", "float32"),
+                 ("quadrotor", "float32"), ("block2d", "float32"), ("uuv", "float32"),
+                 ("dzhanibekov", "float32"), ("tippetop", "float32"),
+                 ("raiberthopper", "float32"), ("panda", "float32"), ("youbot", "float32"),
+                 ("exoskeleton", "float32"))
+# the lanes of the timed step of a model of ZOO_REFERENCE_FAILS: each of the
+# six stalls to max_iter and runs the dense rescue, 26-56 s a step on the
+# card whatever the lanes (8 or 64: host time); its KKT is still checked at
+# ZOO_B
+ZOO_FAILS_B = 8
+# phase atlas: atlas dropped from ATLAS_LIFT above its standing height with
+# joint springs and dampers (tests/test_behaviors.py test_atlas_drop_balance,
+# BASELINE.json's "Atlas humanoid balance/drop"); (a) its KKT through the
+# kernels for a lane over a CTA against the plain versions in float32 at
+# ATLAS_B lanes and float64 at ATLAS_B64; (b) ATLAS_K steps (0.1 s of the
+# JAX test's 1 s) in float64, the JAX test's dtype, on ATLAS_STEP_B lanes,
+# held to its gates over this shorter window: success, the smallest signed
+# distance, finite states; before them ATLAS_K32 float32 step on ATLAS_B32
+# lanes, whose success is not gated: at these options dojo_tpu fails every
+# float32 step too, its solve stalling at rvio ~5e-4
+# (tests/test_torch_zoo_f32_ref.py test_reference_float32_atlas_drop), and
+# each step runs to max_iter and the dense rescue; it runs the float32
+# path's refinement sweeps, the only launches of the matvec (float64 solves
+# take none)
+ATLAS_B, ATLAS_B64, ATLAS_STEP_B, ATLAS_K, ATLAS_LIFT = 64, 8, 32, 10, 0.02
+ATLAS_B32, ATLAS_K32 = 8, 1
+ATLAS_OPTS = dict(rtol=1e-6, btol=1e-4, max_iter=30)
+ATLAS_SUCCESS, ATLAS_MIN_SDF = 0.9, -5e-4
 # float32 linearize on the card against the plain float64 one on the CPU,
 # max(|ΔA|, |ΔB|) / max(1, |A|∞) at knots of the controller's rollout: the
 # same comparison with the float32 plain path on the CPU gave at most
@@ -144,8 +192,13 @@ PLANT_OPTS = dict(rtol=1e-6, btol=1e-4, max_iter=30)
 # T steps, each lane with its own inputs (DIFF_U_SCALE·N(0, 1) per actuated
 # coordinate); the float64 run of its forward/reverse check on DIFF_B64
 # lanes; minimal_jacobians against linearize on step 1's DIFF_B lanes; the
-# sphere's jvp against central differences on DIFF_FD_LANES lanes
-DIFF_B, DIFF_T, DIFF_B64, DIFF_FD_LANES = 64, 3, 8, 16
+# sphere's jvp against central differences on DIFF_FD_LANES lanes.  The
+# reverse check (a) takes DIFF_T steps, so that gradients flow from a later
+# step into an earlier one (DIFF_T_FULL before the atlas phase); the
+# forward check (b) takes DIFF_T_FWD, against the reverse mode of the same
+# steps
+DIFF_B, DIFF_T, DIFF_T_FWD, DIFF_B64, DIFF_FD_LANES = 64, 2, 1, 8, 16
+DIFF_T_FULL = 3
 # the float64 forward/reverse check takes one step (three took 45 s of host
 # time on the card, PR 12): the call's time limit
 DIFF_T64 = 1
@@ -183,7 +236,7 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, reps):
+def time_ms(fn, reps, spin=True):
     """Mean device time of one call of fn, over reps calls after a warm-up.
 
     A spin kernel holds the stream while the calls are enqueued, so the
@@ -191,7 +244,11 @@ def time_ms(fn, reps):
     host's launch overhead (as long as a call's launches fit the queue).
     Where the spin ended before the host had enqueued every call (the host
     slowed), the device waited on the host: the run is made again with a
-    spin twice as long, up to four times (counted in time_ms.redone)."""
+    spin twice as long, up to four times (counted in time_ms.redone).
+    With spin=False (the plain versions, whose thousands of launches a call
+    overflow the queue: the host then waits out any spin, and each run
+    would be made again to no end) the calls are timed back to back with
+    no spin, the device's waits on the host included."""
     import torch
 
     def events():
@@ -199,6 +256,14 @@ def time_ms(fn, reps):
 
     fn()
     torch.cuda.synchronize()
+    if not spin:
+        start, end = events()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
     t = time.perf_counter()
     for _ in range(reps):
         fn()
@@ -394,6 +459,42 @@ def lu_vs_plain(sched, fb, lu, ps):
     return out
 
 
+def profile_summary(prof, top=8):
+    """(device seconds, CUDA events, the top CPU operators by self time) of
+    a finished torch.profiler run, read from its raw kineto events: the
+    profiler's own FunctionEvents (prof.events(), key_averages()) take
+    tens of seconds of host time to build for one step's ~350k events.  As
+    there, a CPU operator's self time is its duration less its children's
+    (nested per thread by start and end), and an operator whose parent has
+    its name and no other child is folded into the parent."""
+    from torch.autograd import DeviceType
+
+    raw = prof.profiler.kineto_results.events()
+    cuda = [e.duration_ns() for e in raw if e.device_type() == DeviceType.CUDA]
+    cpu = sorted((e.start_thread_id(), e.start_ns(), -e.duration_ns(), e.name())
+                 for e in raw if e.device_type() == DeviceType.CPU)
+    parent, children, self_ns, stack = [], [0] * len(cpu), [], []
+    end = lambda j: cpu[j][1] - cpu[j][2]
+    for i, (tid, start, neg, _) in enumerate(cpu):
+        while stack and (cpu[stack[-1]][0] != tid or end(stack[-1]) <= start):
+            stack.pop()
+        parent.append(stack[-1] if stack else -1)
+        if stack:
+            children[stack[-1]] += 1
+            self_ns[stack[-1]] += neg
+        self_ns.append(-neg)
+        stack.append(i)
+    total, calls = {}, {}
+    for i, (_, _, _, name) in enumerate(cpu):
+        total[name] = total.get(name, 0) + self_ns[i]
+        p = parent[i]
+        folded = p >= 0 and cpu[p][3] == name and children[p] == 1
+        calls[name] = calls.get(name, 0) + (not folded)
+    ops = sorted(total, key=total.get, reverse=True)[:top]
+    return (sum(cuda) / 1e9, len(cuda),
+            [dict(op=n, calls=calls[n], self_cpu_ms=total[n] / 1e6) for n in ops])
+
+
 def bound(nbytes, flops, dtype="float32"):
     t_b = nbytes / H100["bytes_per_s"]
     t_f = flops / H100["f64_flops" if dtype == "float64" else "f32_flops"]
@@ -416,14 +517,15 @@ def class_launch_counts():
 
 def row_launch_counts():
     """Launches since the last reset per row of the kernels line: each
-    kernel and width class with one right-hand side a factorization, and as
+    kernel and variant (width class, or "lane") with one right-hand side a
+    factorization, and as
     `solve_shared` / `matvec_shared` the W ≤ 16 launches with k > 1 (the
     shared-factor solve kernel, and the matvec at k columns)."""
     from dojo_tpu_torch import ldu_cuda as L
 
     rows = {}
     for fn in (L.factorize, L.solve, L.matvec):
-        for cls in L.WIDTH_CLASSES:
+        for cls in L.VARIANTS:
             rows[fn.__name__ + CLASS_NAME[cls]] = fn.class_launches[cls] - fn.shared_launches[cls]
         if fn is not L.factorize:
             rows[fn.__name__ + "_shared"] = fn.shared_launches["w16"]
@@ -582,8 +684,9 @@ REPLACES = {
 
 
 def kernel_rows(ds, blocks, fact, rhs, x, mag, errors, model, suffix="", reps=20, plain_reps=3):
-    """One kernels-line row per kernel of the schedule's width class, named
-    <kernel><class><suffix>: times at these inputs and for one lane
+    """One kernels-line row per kernel of the schedule's width class (or of
+    the variant "lane", csrc/ldu_lane.cu, where the lane does not fit a
+    CTA), named <kernel><class><suffix>: times at these inputs and for one lane
     (factorize, solve), the plain versions' and the BSR product's times
     (matvec), the bound (work(): W-wide blocks) and the bound at real
     widths (work_real(): what these inputs need), and the shared memory
@@ -591,7 +694,6 @@ def kernel_rows(ds, blocks, fact, rhs, x, mag, errors, model, suffix="", reps=20
     from dojo_tpu_torch import ldu, ldu_cuda as L
 
     sched = ds.sched
-    cls = L.width_class(sched.width)
     B = blocks.shape[0]
     lib_call, y_lib = bsr_matvec(ds, blocks, x)
     y_p = ldu.matvec(ds.plan, blocks, x)
@@ -614,18 +716,22 @@ def kernel_rows(ds, blocks, fact, rhs, x, mag, errors, model, suffix="", reps=20
                "solve": time_ms(lambda: L.solve(ds, f1, r1), reps)}
     rows = {}
     for k, (name, (kern, plain, lib)) in enumerate(calls.items()):
+        cls = L.variant(sched, name, blocks.dtype, ds.buf.numel())
         ms = time_ms(kern, reps)
         # the cap the runtime holds for the kernel, which its launcher sets
         # to the bytes of each launch
-        smem = L.library().ldu_kernel_smem(k, blocks.element_size(), sched.width)
+        elem = blocks.element_size()
+        smem = (L.lane_library(elem).ldu_lane_kernel_smem(k, elem) if cls == "lane"
+                else L.library(elem=elem).ldu_kernel_smem(k, elem, sched.width))
         check(smem > 0, f"{name}: cannot read the kernel's shared-memory attribute")
         bound_ms, bound_by = bound(*need[name])
         real_ms, real_by = bound(*need_real[name])
         rows[name + CLASS_NAME[cls] + suffix] = dict(
             name=name + CLASS_NAME[cls] + suffix, route="cuda",
-            source="dojo_tpu_torch/csrc/ldu.cu",
+            source="dojo_tpu_torch/csrc/" + ("ldu_lane.cu" if cls == "lane" else "ldu.cu"),
             replaces=REPLACES[name], launches=0, max_abs_err=errors[name], ms=ms,
-            plain_ms=time_ms(plain, plain_reps), bound_ms=bound_ms, bound_by=bound_by,
+            plain_ms=time_ms(plain, plain_reps, spin=False), bound_ms=bound_ms,
+            bound_by=bound_by,
             library_ms=time_ms(lib, reps) if lib is not None else None,
             ms_one_lane=lane_ms.get(name), bound_ms_real=real_ms, bound_by_real=real_by,
             class_row=name + CLASS_NAME[cls],
@@ -857,12 +963,13 @@ def mpc_phase(H=MPC_H, B=MPC_B, device="cuda"):
         # the cap the launcher set for this shape (kernel 3: the shared-factor
         # solve; 4: the matvec at k > 1)
         kc = ds.chunk("solve_shared" if name == "solve" else "matvec", f32, C)
-        smem = L.library().ldu_kernel_smem(3 if name == "solve" else 4, 4, sched.width)
+        smem = L.library(elem=4).ldu_kernel_smem(3 if name == "solve" else 4, 4, sched.width)
         shared[name + "_shared"] = dict(
             name=name + "_shared", route="cuda", source="dojo_tpu_torch/csrc/ldu.cu",
             replaces=REPLACES[name], launches=0, max_abs_err=err_solve0 if name == "solve"
-            else err_mv, ms=ms, plain_ms=time_ms(pl, 2), bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=time_ms(lib, 5) if lib is not None else None, smem_bytes=smem,
+            else err_mv, ms=ms, plain_ms=time_ms(pl, 2, spin=False), bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=time_ms(lib, 5) if lib is not None else None,
+            smem_bytes=smem,
             width_class="w16", W=sched.width, B=knots, k=C, bytes=need[name][0],
             flops=need[name][1], kc=kc)
     emit("mpc_shared_factor", knots=knots, rhs_per_fact=C, lanes=knots * C, solve_scale=scale,
@@ -998,6 +1105,9 @@ def zoo_phase(K=ZOO_K, B=ZOO_B, names=ZOO_MODELS, device="cuda"):
         rows.update(mine)
 
         # K timed steps, as bench_zoo steps: u=None, no warm start
+        lanes = ZOO_FAILS_B if name in ZOO_REFERENCE_FAILS else B
+        if lanes < B:
+            bstate = tensor_map(lambda a: a[:lanes].contiguous(), bstate)
         L.reset_launches()
         st, oks, its, rescued = bstate, [], [], 0
         torch.cuda.synchronize()
@@ -1018,8 +1128,10 @@ def zoo_phase(K=ZOO_K, B=ZOO_B, names=ZOO_MODELS, device="cuda"):
         finite = all(bool(torch.isfinite(f).all()) for f in (st.x, st.q, st.v, st.w))
         success = torch.stack(oks).float().mean().item()
         emit("zoo", model=name, W=sched.width, width_class=cls, dim=topo.dim, B=B, K=K,
-             n_reference=max(2, int(round(1.0 / h))), reduced={"steps": K}, h=h,
-             dtype="float32", steps_per_s=B * K / dt, sim_seconds_per_s=B * K * h / dt,
+             n_reference=max(2, int(round(1.0 / h))), h=h, lanes_stepped=lanes,
+             reduced={"steps": K, **({"lanes_stepped": lanes} if lanes < B else {})},
+             dtype="float32", steps_per_s=lanes * K / dt,
+             sim_seconds_per_s=lanes * K * h / dt,
              success=success, mean_iters=torch.stack(its).float().mean().item(),
              rescued_lanes=rescued,
              reference_fails_too=name in ZOO_REFERENCE_FAILS,
@@ -1063,13 +1175,15 @@ def diff_phase(B=DIFF_B, T=DIFF_T, device="cuda"):
     quadruped at bench.py's options in float32, B lanes from its initial
     state, each with its own inputs (DIFF_U_SCALE·N(0, 1) per actuated
     coordinate, seeded), T steps of make_diff_step_minimal and the loss
-    mean over lanes of Σ y_T².  Checks (a) reverse mode: every lane of
-    every step's forward solve converged (the dense rescue included; the
-    rescued lanes are counted), finite grads on every step's inputs,
-    contact_friction and mass; (b) forward mode: ⟨∇L,
-    d⟩ by torch.func.jvp along a seeded direction d in (u, contact_friction)
-    against (a), relative to Σ|∂L/∂θᵢ dᵢ|, float32 (and float64 on
-    DIFF_B64 lanes over DIFF_T64 steps); (e) solve.traced against solve on
+    mean over lanes of Σ y_t² after step t.  Checks (a) reverse mode at
+    t = T: every lane of every step's forward solve converged (the dense
+    rescue included; the rescued lanes are counted), finite grads on every
+    step's inputs, contact_friction and mass, each step's inputs a nonzero
+    gradient; (b) forward mode at t = DIFF_T_FWD: ⟨∇L, d⟩ by
+    torch.func.jvp along a seeded direction d in (u, contact_friction)
+    against the reverse mode of the same loss (taken on (a)'s graph),
+    relative to Σ|∂L/∂θᵢ dᵢ|, float32 (and float64 on DIFF_B64 lanes over
+    DIFF_T64 steps); (e) solve.traced against solve on
     step 1's solve; (c) minimal_jacobians (dense LU) against linearize (the
     LDU kernels' k = 54 shared-factor solve and one refine sweep) at (e)'s
     solution, on all of step 1's lanes, those the dense rescue finished and
@@ -1122,14 +1236,16 @@ def diff_phase(B=DIFF_B, T=DIFF_T, device="cuda"):
         to = lambda a: a.to(dtype).to(dev)
         step = make_diff_step_minimal(topo, opts, device=dev)
 
-        def loss(u, fric, mass, stats):
+        def losses(u, fric, mass, stats, steps=T):
+            """The loss after each of the first `steps` steps."""
             p = dataclasses.replace(params, contact_friction=fric, mass=mass)
-            y = y0
-            for t in range(T):
+            y, out = y0, []
+            for t in range(steps):
                 y = step(p, y, u[t], stats[t])
-            return (y * y).sum(-1).mean()
+                out.append((y * y).sum(-1).mean())
+            return out
 
-        return mech, y0, to(us), (to(du), to(dfric)), loss
+        return mech, y0, to(us), (to(du), to(dfric)), losses
 
     def solves(stats, part):
         """The forward solves' counts per step, each step's success share
@@ -1141,15 +1257,18 @@ def diff_phase(B=DIFF_B, T=DIFF_T, device="cuda"):
         return [dict(failed=st["failed"], rescued=st["rescued"],
                      iterations=st["iterations"] / st["lanes"]) for st in stats]
 
-    def reverse_forward(dtype, lanes, T, what):
-        """(a) and (b) on `lanes` lanes over T steps; returns (mech, y0,
-        inputs)."""
-        mech, y0, us, (du, dfric), loss = case(dtype, lanes, T)
+    def reverse_forward(dtype, lanes, T, T_fwd, what):
+        """(a) on `lanes` lanes over T steps and (b) over the first T_fwd;
+        returns (mech, y0, inputs)."""
+        mech, y0, us, (du, dfric), losses = case(dtype, lanes, T)
         u = us.clone().requires_grad_()
         fric = mech.params.contact_friction.clone().requires_grad_()
         mass = mech.params.mass.clone().requires_grad_()
-        stats_a, stats_b = [{} for _ in range(T)], [{} for _ in range(T)]
-        value = loss(u, fric, mass, stats_a)
+        stats_a, stats_b = [{} for _ in range(T)], [{} for _ in range(T_fwd)]
+        values = losses(u, fric, mass, stats_a)
+        value, value_fwd = values[-1], values[T_fwd - 1]
+        # the reverse mode of (b)'s loss, on (a)'s graph
+        g_fwd = torch.autograd.grad(value_fwd, (u, fric), retain_graph=True)
         value.backward()
         grads = {"u": u.grad, "contact_friction": fric.grad, "mass": mass.grad}
         lap("a" + what)
@@ -1158,13 +1277,15 @@ def diff_phase(B=DIFF_B, T=DIFF_T, device="cuda"):
             check(bool(torch.isfinite(g).all()), f"diff {what}: non-finite grad of {name}")
         step_norm = u.grad.flatten(1).norm(dim=1)
         check(bool((step_norm > 0).all()), f"diff {what}: a step's inputs got no gradient")
-        _, fwd = torch.func.jvp(lambda u_, f_: loss(u_, f_, mech.params.mass, stats_b),
-                                (us, mech.params.contact_friction), (du, dfric))
-        terms = torch.cat([(u.grad * du).flatten(), fric.grad * dfric]).double()
+        _, fwd = torch.func.jvp(
+            lambda u_, f_: losses(u_, f_, mech.params.mass, stats_b, T_fwd)[-1],
+            (us[:T_fwd], mech.params.contact_friction), (du[:T_fwd], dfric))
+        terms = torch.cat([(g_fwd[0][:T_fwd] * du[:T_fwd]).flatten(),
+                           g_fwd[1] * dfric]).double()
         rev = terms.sum().item()
         rel = abs(fwd.item() - rev) / terms.abs().sum().item()
-        errors["b" + what] = dict(forward=fwd.item(), reverse=rev, rel_err=rel,
-                                  tol=DIFF_FWD_TOL[str(dtype)], loss=value.item(),
+        errors["b" + what] = dict(steps=T_fwd, forward=fwd.item(), reverse=rev, rel_err=rel,
+                                  tol=DIFF_FWD_TOL[str(dtype)], loss=value_fwd.item(),
                                   grad_norm={k: g.norm().item() for k, g in grads.items()},
                                   step_grad_norm=step_norm.tolist(),
                                   solves=solves(stats_b, "b" + what))
@@ -1174,8 +1295,8 @@ def diff_phase(B=DIFF_B, T=DIFF_T, device="cuda"):
               f"(tol {DIFF_FWD_TOL[str(dtype)]})")
         return mech, y0, us
 
-    mech, y0, us = reverse_forward(torch.float32, B, T, "")
-    reverse_forward(torch.float64, DIFF_B64, DIFF_T64, "64")
+    mech, y0, us = reverse_forward(torch.float32, B, T, min(T, DIFF_T_FWD), "")
+    reverse_forward(torch.float64, DIFF_B64, DIFF_T64, DIFF_T64, "64")
     topo, params = mech.topo, mech.params
 
     # (e) solve.traced against solve on step 1's solve
@@ -1252,12 +1373,144 @@ def diff_phase(B=DIFF_B, T=DIFF_T, device="cuda"):
           f"diff (d): sphere jvp against central differences {err_fd} (atol {DIFF_FD_ATOL})")
 
     launches = launch_counts()
-    emit("diff", model="quadruped", B=B, T=T, h=0.05, dtype="float32", B64=DIFF_B64,
-         T64=DIFF_T64,
+    emit("diff", model="quadruped", B=B, T=T, T_forward=min(T, DIFF_T_FWD), h=0.05,
+         dtype="float32", B64=DIFF_B64, T64=DIFF_T64,
+         **({"reduced": {"T": T, "T_forward": min(T, DIFF_T_FWD), "T_before": DIFF_T_FULL}}
+            if T < DIFF_T_FULL else {}),
          seconds=seconds, errors=errors, launches=launches)
     for name, c in launches.items():
         check(c > 0, f"diff: kernel {name} was not launched in the phase")
     return row_launch_counts()
+
+
+def atlas_case(dtype, device):
+    """Atlas as phase atlas drives it: the mechanism on `device` in `dtype`,
+    and its initial state made in float64 on the CPU and rounded once (as
+    zoo_state makes the zoo's)."""
+    import torch
+
+    from dojo_tpu_torch import models
+    from dojo_tpu_torch.core import tensor_map
+
+    kw = dict(springs=1000.0, dampers=100.0, parse_springs=False, parse_dampers=False)
+    pos = (0, 0, 0.9385 + ATLAS_LIFT)
+    state = models.initialize(models.get_mechanism("atlas", device="cpu", **kw), "atlas",
+                              body_position=pos)
+    mech = models.get_mechanism("atlas", device=device, **kw).cast(dtype)
+    return mech, tensor_map(lambda a: a.to(dtype).to(device), state)
+
+
+def atlas_phase(B=ATLAS_B, B64=ATLAS_B64, step_B=ATLAS_STEP_B, K=ATLAS_K, device="cuda"):
+    """Atlas's drop on the card.  (a) Its KKT (W = 38, N = 62, S = 244, 22
+    levels; a lane over a CTA's shared memory) through the kernels of
+    csrc/ldu_lane.cu against the plain versions (check_kernels: block LUs
+    bitwise, the solve unrefined and refined once, the matvec, with the
+    33..72 class's limits) in float32 at B lanes, with the kernels-line rows
+    factorize_lane, solve_lane and matvec_lane, and in float64 at B64 lanes
+    (atlas_kkt); (b) from ATLAS_LIFT above its standing height, ATLAS_K32
+    float32 steps on ATLAS_B32 lanes (finite states; success reported, not
+    gated: dojo_tpu fails them too), then K float64 steps on step_B lanes:
+    success (the rescue included), the smallest signed distance of any
+    contact, finite states; for each, steps/s, iterations and rescued
+    lanes; and the launches of each variant over both.  Returns (the
+    launches of (b) per kernels-line row, the rows)."""
+    import torch
+
+    from dojo_tpu_torch import ldu_cuda as L
+    from dojo_tpu_torch.contacts import signed_distances
+    from dojo_tpu_torch.core import SolverOptions, tensor_map
+    from dojo_tpu_torch.simulate import make_step
+
+    dev = torch.device(device)
+    rows = {}
+    for dt, lanes in (("float32", B), ("float64", B64)):
+        t0 = time.perf_counter()
+        dtype = getattr(torch, dt)
+        mech, state = atlas_case(dtype, dev)
+        sched, ds, blocks, rhs = model_kkt(mech, state, lanes, dev)
+        variants = {n: L.variant(sched, n, dtype, ds.buf.numel())
+                    for n in ("factorize", "solve", "matvec")}
+        check(set(variants.values()) == {"lane"},
+              f"atlas {dt}: the kernels {variants} are not those for a lane over a CTA")
+        L.reset_launches()
+        errors, fact_k, x_k, mag = check_kernels(ds, blocks, rhs, f"atlas {dt}")
+        for n, c in class_launch_counts().items():
+            check(c["lane"] > 0 and sum(c.values()) == c["lane"],
+                  f"atlas {dt}: kernel {n} for a lane over a CTA did not run alone: {c}")
+        need = work(sched, lanes, blocks.element_size())
+        need_real = work_real(sched, lanes, blocks.element_size())
+        if dt == "float32":
+            rows = kernel_rows(ds, blocks, fact_k, rhs, x_k, mag, errors, "atlas")
+            kernels = {r["name"]: {k: r[k] for k in ("ms", "ms_one_lane", "plain_ms",
+                                                     "library_ms", "bound_ms",
+                                                     "bound_ms_real", "smem_bytes")}
+                       for r in rows.values()}
+        else:
+            calls = {"factorize": lambda: L.factorize(ds, blocks),
+                     "solve": lambda: L.solve(ds, fact_k, rhs),
+                     "matvec": lambda: L.matvec(ds, blocks, x_k)}
+            kernels = {n: dict(ms=time_ms(fn, 10), bound_ms=bound(*need[n], dt)[0],
+                               bound_ms_real=bound(*need_real[n], dt)[0],
+                               smem_bytes=ds.layout(n, dtype)["bytes"] if n == "matvec"
+                               else ds.layout(n, dtype).bytes)
+                       for n, fn in calls.items()}
+        emit("atlas_kkt", model="atlas", dtype=dt, W=sched.width, N=sched.n_nodes,
+             S=sched.n_slots, levels=len(sched.levels), B=lanes, variants=variants,
+             lu_blocks_bitwise=errors["lu_blocks"], lu_identity=errors["lu_identity"],
+             relres=errors["relres"], solve_scale=errors["solve_scale"],
+             limits=errors["limits"],
+             max_abs_err={n: errors[n] for n in ("factorize", "solve", "matvec")},
+             kernels=kernels, seconds=time.perf_counter() - t0)
+
+    # (b) the drop
+    def drop(dtype, lanes, steps):
+        mech, state = atlas_case(dtype, dev)
+        topo, params = mech.topo, mech.params
+        step = make_step(topo, SolverOptions(**ATLAS_OPTS), device=dev)
+        st = tensor_map(lambda a: a.expand(lanes, *a.shape).contiguous(), state)
+        z0 = state.x[0, 2].item()
+        oks, its, rescued, min_sdf, per_step = [], [], 0, float("inf"), []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            st, info = step(params, st)
+            oks.append(info.success)
+            its.append(info.iterations)
+            rescued += int(info.rescued.sum())
+            sdf = signed_distances(topo, params, st).min().item()
+            min_sdf = min(min_sdf, sdf)
+            per_step.append(dict(success=info.success.float().mean().item(),
+                                 iterations=info.iterations.float().mean().item(),
+                                 rescued=int(info.rescued.sum()), min_sdf=sdf,
+                                 rvio_max=info.rvio.max().item()))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        h = float(params.timestep)
+        out = dict(B=lanes, K=steps, h=h, dtype=str(dtype)[6:], dim=topo.dim, seconds=dt,
+                   steps_per_s=lanes * steps / dt, sim_seconds_per_s=lanes * steps * h / dt,
+                   success=torch.stack(oks).float().mean().item(),
+                   mean_iters=torch.stack(its).float().mean().item(), rescued_lanes=rescued,
+                   min_signed_distance=min_sdf, root_drop=z0 - st.x[:, 0, 2].min().item(),
+                   per_step=per_step)
+        check(all(bool(torch.isfinite(f).all()) for f in (st.x, st.q, st.v, st.w)),
+              f"atlas: non-finite state after the {out['dtype']} drop")
+        return out
+
+    L.reset_launches()
+    f32 = drop(torch.float32, ATLAS_B32, ATLAS_K32)
+    f64 = drop(torch.float64, step_B, K)
+    launches = class_launch_counts()
+    success, min_sdf = f64["success"], f64["min_signed_distance"]
+    emit("atlas", model="atlas", lift=ATLAS_LIFT, float32=f32, float64=f64,
+         reduced={"steps": K, "reference_steps": max(10, int(round(1.0 / f64["h"])))},
+         reference_fails_float32=True, launches=launches,
+         gates=dict(success=ATLAS_SUCCESS, min_signed_distance=ATLAS_MIN_SDF))
+    check(success >= ATLAS_SUCCESS, f"atlas: float64 success {success} < {ATLAS_SUCCESS}")
+    check(min_sdf >= ATLAS_MIN_SDF, f"atlas: smallest signed distance {min_sdf} < {ATLAS_MIN_SDF}")
+    for n, c in launches.items():
+        check(c["lane"] > 0, f"atlas: kernel {n} for a lane over a CTA was not launched")
+        check(sum(c.values()) == c["lane"], f"atlas: a kernel of another variant ran: {c}")
+    return row_launch_counts(), rows
 
 
 def main():
@@ -1278,12 +1531,19 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # ---- build ----------------------------------------------------------------
+    # the four libraries at once (ldu.cu and ldu_lane.cu, a dtype each), an
+    # nvcc process each
     t = time.perf_counter()
-    path, report = L.build()
-    L.library()
-    emit("build", seconds=round(time.perf_counter() - t, 3), library=os.path.basename(path),
-         ptxas=[ln.strip() for ln in report.splitlines()
-                if any(w in ln for w in ("registers", "spill", "Compiling"))])
+    built = L.build_all()
+    for elem in (4, 8):
+        L.library(elem=elem)
+        L.lane_library(elem)
+    emit("build", seconds=round(time.perf_counter() - t, 3),
+         libraries={f"{src}:{'float32' if elem == 4 else 'float64'}": dict(
+             library=os.path.basename(path), seconds=round(sec, 3),
+             ptxas=[ln.strip() for ln in report.splitlines()
+                    if any(w in ln for w in ("registers", "spill", "Compiling"))])
+             for (src, elem), (path, report, sec) in built.items()})
 
     # ---- kernels vs plain versions on the quadruped KKT ----------------------
     f32 = torch.float32
@@ -1357,7 +1617,6 @@ def main():
     check(cold["success"] >= 0.9, f"cold chain success {cold['success']} < 0.9")
 
     # ---- where a step's time goes: one warm step under torch.profiler --------
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     st_w, info_w = step(params, bstate, u)
@@ -1367,13 +1626,9 @@ def main():
         step(params, st_w, u, w_prev=info_w.w)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    device_s = sum(e.device_time for e in kernels) / 1e6
-    ops = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    device_s, n_kernels, top_ops = profile_summary(prof)
     emit("profile", wall_s=wall, device_busy_s=device_s, device_busy_share=device_s / wall,
-         cuda_kernels=len(kernels),
-         top_cpu_ops=[dict(op=e.key, calls=e.count, self_cpu_ms=e.self_cpu_time_total / 1e3)
-                      for e in ops[:8]])
+         cuda_kernels=n_kernels, top_cpu_ops=top_ops)
 
     # ---- reference: plain float64 path on the CPU, lane 0 ---------------------
     mech64 = models.get_mechanism("quadruped", timestep=0.05, device="cpu")
@@ -1392,12 +1647,15 @@ def main():
     table.update(shared_rows)
     zoo_launches, zoo_rows = zoo_phase()
     table.update(zoo_rows)
+    atlas_launches, atlas_rows = atlas_phase()
+    table.update(atlas_rows)
     diff_launches = diff_phase()
     for row in table.values():
         kernel = row.get("class_row", row["name"])  # the kernel the row times
         row["launches"] = rows_steps[kernel]
         row["launches_mpc"] = launches_mpc[kernel]
         row["launches_zoo"] = zoo_launches[kernel]
+        row["launches_atlas"] = atlas_launches[kernel]
         row["launches_diff"] = diff_launches[kernel]
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(smi, flush=True)

@@ -23,7 +23,13 @@ from .builder import (
     Mechanism,
     box_body,
     build,
+    capsule_body,
+    combined_body,
     cylinder_body,
+    mesh_body,
+    pyramid_body,
+    reduce_fixed_joints,
+    set_floating_base,
     sphere_body,
 )
 from .contacts import signed_distances

@@ -1,10 +1,13 @@
 """Mechanism construction: bodies + joints + contacts → (Topology, Params).
 
 Counterpart of dojo_tpu/builder.py for what the ported models need: bodies
-with explicit inertia or the inertia of a box, cylinder or sphere, any joint
-kind of the masked joint kernel (floating
-base, revolute, ...), sphere–halfspace contacts, joint limits, springs,
-dampers and spring offsets.  Everything is computed host-side in numpy
+with explicit inertia or the inertia of a box, cylinder, sphere, capsule or
+pyramid, any joint kind of the masked joint kernel (floating base,
+revolute, ...), loop-closing joints, sphere–halfspace contacts, joint
+limits, springs, dampers and spring offsets; and, on the definition lists
+before ``build``, the merge of bodies across fixed joints
+(``reduce_fixed_joints``) and the re-rooting of a chain
+(``set_floating_base``).  Everything is computed host-side in numpy
 float64 and moved to the device once, as one tensor per Params field.
 ``Mechanism`` also carries dojo_tpu's surface: step and simulate, the
 parameters by body, joint or contact name, the flat data vector, and the
@@ -81,6 +84,43 @@ def sphere_body(name, r, mass):
     return Body(name, mass, J, shape={"type": "sphere", "r": r})
 
 
+def capsule_body(name, r, h, mass):
+    """A solid capsule: a cylinder of radius r and length h along z and two
+    hemispherical caps, the mass split by volume, each cap's inertia moved
+    by the parallel-axis rule to its centroid at 3r/8 + h/2."""
+    vol_cyl = np.pi * h * r**2
+    vol_hemi = np.pi * 4.0 / 3.0 * r**3 / 2.0
+    m_cyl = mass * vol_cyl / (vol_cyl + 2 * vol_hemi)
+    m_hemi = mass * vol_hemi / (vol_cyl + 2 * vol_hemi)
+    ixx_cyl = m_cyl * (h**2 / 12.0 + r**2 / 4.0)
+    izz_cyl = m_cyl * r**2 / 2.0
+    ixx_hemi = 83.0 / 320.0 * m_hemi * r**2
+    izz_hemi = m_hemi * 2.0 / 5.0 * r**2 / 2.0
+    d = 3.0 / 8.0 * r + 0.5 * h
+    ixx = ixx_cyl + 2.0 * (ixx_hemi + m_hemi * d**2)
+    izz = izz_cyl + 2.0 * izz_hemi
+    return Body(name, mass, np.diag([ixx, ixx, izz]), shape={"type": "capsule", "rh": (r, h)})
+
+
+def pyramid_body(name, w, h, mass):
+    """A solid square pyramid of base w and height h pointing +z (its COM
+    at h/4 above the base)."""
+    J = mass / 80.0 * np.diag([4 * w**2 + 3 * h**2, 4 * w**2 + 3 * h**2, 8 * w**2])
+    return Body(name, mass, J, shape={"type": "pyramid", "wh": (w, h)})
+
+
+def mesh_body(name, mass, inertia, path=None, scale=(1.0, 1.0, 1.0)):
+    """A body of explicit inertia drawn as a mesh (the file is kept by name:
+    the simulation never reads it)."""
+    return Body(name, mass, np.asarray(inertia),
+                shape={"type": "mesh", "path": path, "scale": tuple(scale)})
+
+
+def combined_body(name, mass, inertia, shapes):
+    """A body of explicit inertia drawn as a list of shape dicts."""
+    return Body(name, mass, np.asarray(inertia), shape={"type": "combined", "shapes": list(shapes)})
+
+
 @dataclasses.dataclass
 class JointDef:
     kind: str
@@ -114,6 +154,113 @@ class ContactDef:
     name: Optional[str] = None
 
 
+def reduce_fixed_joints(bodies, joints, contacts=()):
+    """Merge bodies across body–body fixed joints → (bodies, joints,
+    contacts), new lists.
+
+    The merged body keeps the parent's name and orientation; its origin
+    moves to the combined COM, its inertia is the parallel-axis sum.  The
+    joints and contacts on either body are moved into the merged frame: on
+    the child they are carried through the fixed joint's offset (a joint
+    whose parent was the child rotates its translational axis and keeps its
+    rotational one; a joint whose child was the child rotates its
+    rotational axis).  Fixed joints to the origin stay as constraints."""
+    import copy
+
+    bodies = [copy.deepcopy(b) for b in bodies]
+    joints = [copy.deepcopy(j) for j in joints]
+    contacts = [copy.deepcopy(c) for c in contacts]
+    f64 = lambda v: np.asarray(v, dtype=np.float64)
+
+    def kmat(d):
+        d = f64(d)
+        return float(d @ d) * np.eye(3) - np.outer(d, d)
+
+    while True:
+        jfix = next((j for j in joints if j.kind == "fixed" and j.parent != "origin"), None)
+        if jfix is None:
+            return bodies, joints, contacts
+        p = next(b for b in bodies if b.name == jfix.parent)
+        c = next(b for b in bodies if b.name == jfix.child)
+        off = f64(jfix.orientation_offset)
+        R = nplie.rotation_matrix(off)
+        delta = f64(jfix.parent_vertex) - R @ f64(jfix.child_vertex)  # child origin, parent frame
+        m = p.mass + c.mass
+        s = c.mass / m * delta  # the combined COM in the parent's frame
+        Jp = p.inertia_matrix() + p.mass * kmat(-s)
+        Jc = R @ c.inertia_matrix() @ R.T + c.mass * kmat(delta - s)
+        p.mass = m
+        p.inertia = Jp + Jc
+        to_parent = lambda v: R @ f64(v) + delta - s
+        for jd in joints:
+            if jd is jfix:
+                continue
+            if jd.parent == p.name:
+                jd.parent_vertex = f64(jd.parent_vertex) - s
+            elif jd.child == p.name:
+                jd.child_vertex = f64(jd.child_vertex) - s
+            elif jd.parent == c.name:
+                jd.parent = p.name
+                jd.parent_vertex = to_parent(jd.parent_vertex)
+                if jd.rot_axis is None:
+                    jd.rot_axis = f64(jd.axis)
+                jd.axis = R @ f64(jd.axis)
+                jd.orientation_offset = nplie.qmul(off, f64(jd.orientation_offset))
+            elif jd.child == c.name:
+                jd.child = p.name
+                jd.child_vertex = to_parent(jd.child_vertex)
+                jd.rot_axis = R @ f64(jd.axis if jd.rot_axis is None else jd.rot_axis)
+                jd.orientation_offset = nplie.qmul(f64(jd.orientation_offset), nplie.qconj(off))
+        for cd in contacts:
+            if cd.body == p.name:
+                cd.origin = f64(cd.origin) - s
+            elif cd.body == c.name:
+                cd.body = p.name
+                cd.origin = to_parent(cd.origin)
+        joints.remove(jfix)
+        bodies.remove(c)
+
+
+def set_floating_base(bodies, joints, name):
+    """Re-root the chain so that body ``name`` hangs off the origin's joint
+    → (bodies, joints), new lists.
+
+    Each joint on the path from the origin's subtree root to ``name`` swaps
+    parent and child and their vertices, inverts its orientation offset, and
+    maps its axes so that its minimal coordinates keep their meaning: the
+    rotational axis to −R(off)·axis, the translational to −R(off)ᵀ·axis.
+    The origin's joint keeps its kind and takes ``name`` as its child.
+    Contacts are attached to bodies and need no change."""
+    import copy
+
+    bodies = [copy.deepcopy(b) for b in bodies]
+    joints = [copy.deepcopy(j) for j in joints]
+    f64 = lambda v: np.asarray(v, dtype=np.float64)
+    child_to_joint = {}
+    for jd in joints:
+        if jd.child in child_to_joint:
+            raise ValueError(f"set_floating_base: body '{jd.child}' has several parent joints "
+                             "(a kinematic loop); re-rooting a loop is not supported")
+        child_to_joint[jd.child] = jd
+    if name not in child_to_joint:
+        raise ValueError(f"set_floating_base: unknown body '{name}'")
+    chain = [child_to_joint[name]]
+    while chain[-1].parent not in ("origin", "world"):
+        chain.append(child_to_joint[chain[-1].parent])
+    for jd in chain:
+        if jd.parent in ("origin", "world"):
+            jd.child = name
+            continue
+        off = f64(jd.orientation_offset)
+        R = nplie.rotation_matrix(off)
+        jd.parent, jd.child = jd.child, jd.parent
+        jd.parent_vertex, jd.child_vertex = f64(jd.child_vertex), f64(jd.parent_vertex)
+        jd.rot_axis = -R @ f64(jd.axis if jd.rot_axis is None else jd.rot_axis)
+        jd.axis = -R.T @ f64(jd.axis)
+        jd.orientation_offset = nplie.qconj(off)
+    return bodies, joints
+
+
 def _masks(axis, nlam):
     """Constraint/nullspace mask rows, zero-padded."""
     v1, v2, v3 = lie.orthogonal_rows(np.asarray(axis, dtype=np.float64))
@@ -139,10 +286,11 @@ def _masks(axis, nlam):
 class Mechanism:
     """Built mechanism: static topology + parameter tensors + name maps."""
 
-    def __init__(self, topo, params, body_names, joint_names, contact_names):
+    def __init__(self, topo, params, body_names, joint_names, contact_names, body_shapes=None):
         self.topo = topo
         self.params = params
         self.body_names = list(body_names)
+        self.body_shapes = list(body_shapes or [None] * len(self.body_names))
         self.joint_names = list(joint_names)
         self.contact_names = list(contact_names)
         self.body_index = {n: i for i, n in enumerate(body_names)}
@@ -527,4 +675,5 @@ def build(
         body_names,
         [jd.name or f"joint_{i}" for i, jd in enumerate(joints)],
         [cd.name or f"contact_{i}" for i, cd in enumerate(contacts)],
+        [b.shape for b in bodies],
     )

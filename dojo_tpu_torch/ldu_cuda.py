@@ -3,9 +3,9 @@
 Each wrapper takes the plain PyTorch version (ldu.py) for a tensor on the
 CPU, at any block width, and launches the CUDA kernel for a tensor on a
 CUDA device; a CUDA tensor the kernels cannot take (W > MAXW = 72, a lane
-over the shared-memory limit of a CTA (``smem_layout``), not contiguous,
-not float32/float64, not (B, ...) batch-major) raises.  There is no
-fallback.
+of W <= 16 over the shared-memory limit of a CTA (``smem_layout``), not
+contiguous, not float32/float64, not (B, ...) batch-major) raises.  There
+is no fallback.
 
 The kernels come in three width classes (``WIDTH_CLASSES``), each a kernel
 of its own picked from the schedule's block width W: W <= 16 (a half-warp
@@ -16,13 +16,20 @@ their real size) and 33..72 (the same kernels at each node's real width,
 a node wider than 32 factored by the whole CTA and substituted a thread
 a row, a barrier a row; the matvec is the 17..32 class's).  The real-width
 kernels take the input blocks' pad as the assembler makes it: zero,
-identity on the diagonal blocks.  Each wrapper counts its kernel launches in
-``<wrapper>.launches`` (a plain integer, all classes) and per class in
-``<wrapper>.class_launches``.
+identity on the diagonal blocks.  A lane of 17..72 whose real-width layout
+does not fit a CTA's shared memory (atlas: W = 38, 62 nodes, 244 slots)
+takes the kernels of csrc/ldu_lane.cu instead: the same code with the
+lane's blocks (and the solve's LU and PS) read and written where they lie
+in global memory, and the rest in shared memory (variant "lane":
+``variant``).  Each wrapper counts its kernel launches in
+``<wrapper>.launches`` (a plain integer, all kernels) and per variant (the
+width classes and "lane", ``VARIANTS``) in ``<wrapper>.class_launches``.
 
-The library is built at first use with nvcc for sm_90a into ``_build/``
-(listed in .gitignore), keyed on a hash of the source and flags, and loaded
-with ctypes: a plain C interface, no PyTorch headers, seconds to compile.
+The libraries (csrc/ldu.cu, and csrc/ldu_lane.cu, which includes it; each
+built for one dtype, LDU_ELEM) are built at first use with nvcc for sm_90a
+into ``_build/`` (listed in .gitignore), each keyed on a hash of its
+sources and flags (``build_all`` runs the four nvcc processes at once), and
+loaded with ctypes: a plain C interface, no PyTorch headers.
 The schedule goes to the device once per solver as one int32 buffer in CSR
 form (``DeviceSchedule``); the kernels loop over it at run time, so one
 build serves every mechanism.
@@ -46,6 +53,9 @@ from .ldu import flat_to_nodes, nodes_to_flat  # noqa: F401  (node-vector gather
 MAXW = 72  # the widest block the kernels take (csrc/ldu.cu ldu_max_width)
 # width classes: name -> (widest W, groups of a CTA (each works on one block))
 WIDTH_CLASSES = {"w16": (16, 16), "w32": (32, 8), "w72": (MAXW, 1)}
+# the kernels a launch may take: a width class's, or (17..72, a lane over a
+# CTA's shared memory) the lane-in-global-memory kernels of csrc/ldu_lane.cu
+VARIANTS = (*WIDTH_CLASSES, "lane")
 
 
 def width_class(W: int) -> str:
@@ -66,6 +76,7 @@ def tile_width(W: int) -> int:
     return 16 if cls == "w16" else W
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "ldu.cu")
+LANE_SOURCE = os.path.join(os.path.dirname(SOURCE), "ldu_lane.cu")  # includes ldu.cu
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -122,23 +133,26 @@ def _nvcc() -> str:
     return path
 
 
-def build(defines: tuple = ()) -> tuple[str, str]:
-    """Compile csrc/ldu.cu into a shared library unless a build of the same
-    source and flags exists; ``defines`` are macros to set (LDU_PHASES: the
-    real-width kernels' phase stamps, scripts/ldu_phase_split.py).  Returns
-    (library path, ptxas report: each kernel's registers, spills and shared
-    memory)."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
+def build(defines: tuple = (), source: str = SOURCE) -> tuple[str, str]:
+    """Compile ``source`` (csrc/ldu.cu, or csrc/ldu_lane.cu) into a shared
+    library unless a build of the same sources and flags exists;
+    ``defines`` are macros to set (LDU_PHASES: the real-width kernels' phase
+    stamps, scripts/ldu_phase_split.py).  Returns (library path, ptxas
+    report: each kernel's registers, spills and shared memory)."""
+    src = b""
+    for path in dict.fromkeys((SOURCE, source)):  # ldu_lane.cu includes ldu.cu
+        with open(path, "rb") as f:
+            src += f.read()
     flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
     key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"libdojo_ldu_{key}.so")
+    stem = os.path.splitext(os.path.basename(source))[0].replace("ldu", "dojo_ldu")
+    lib = os.path.join(BUILD_DIR, f"lib{stem}_{key}.so")
     log = lib + ".ptxas.txt"
     if os.path.exists(lib):
         return lib, open(log).read() if os.path.exists(log) else ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp, SOURCE]
+    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -151,22 +165,72 @@ def build(defines: tuple = ()) -> tuple[str, str]:
     return lib, proc.stdout + proc.stderr
 
 
+def _elem_define(elem: int) -> tuple:
+    """The macro that builds a library's entry points for one dtype (elem
+    4: float32, 8: float64)."""
+    return (f"LDU_ELEM={elem}",)
+
+
+def build_all(defines: tuple = ()) -> dict:
+    """Build the libraries the wrappers load, csrc/ldu.cu's and
+    csrc/ldu_lane.cu's for each dtype, at once, an nvcc process each (see
+    build).  Returns {(source file, elem): (library path, ptxas report,
+    seconds)}."""
+    import concurrent.futures
+    import time
+
+    def one(source, elem):
+        t = time.perf_counter()
+        return (*build(defines + _elem_define(elem), source), time.perf_counter() - t)
+
+    jobs = [(src, elem) for src in (SOURCE, LANE_SOURCE) for elem in (4, 8)]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        done = {(os.path.basename(src), elem): pool.submit(one, src, elem) for src, elem in jobs}
+        return {key: f.result() for key, f in done.items()}
+
+
 _LIBS: dict = {}
 
 
-def library(defines: tuple = ()) -> ctypes.CDLL:
-    """The loaded kernel library (built with ``defines``, see build), built
-    and loaded once per process.  The wrappers launch the plain build's."""
-    if defines not in _LIBS:
-        path, _ = build(defines)
+def _dtype(elem: int) -> str:
+    return {4: "f32", 8: "f64"}[elem]
+
+
+def lane_library(elem: int) -> ctypes.CDLL:
+    """The loaded library of csrc/ldu_lane.cu (the kernels for a lane over
+    a CTA's shared memory) for float32 (elem 4) or float64 (8), built and
+    loaded once per process."""
+    if ("lane", elem) not in _LIBS:
+        lib = ctypes.CDLL(build(_elem_define(elem), LANE_SOURCE)[0])
+        p, i, dt = ctypes.c_void_p, ctypes.c_int, _dtype(elem)
+        getattr(lib, f"ldu_lane_factorize_{dt}").argtypes = [p, p, i, p, p, p, p, p]
+        getattr(lib, f"ldu_lane_solve_{dt}").argtypes = [p, p, i, i, p, p, p, p, p, p]
+        getattr(lib, f"ldu_lane_matvec_{dt}").argtypes = [p, i, i, i, i, i, p, p, p, p]
+        for fn in ("factorize", "solve", "matvec"):
+            getattr(lib, f"ldu_lane_{fn}_{dt}").restype = i
+        lib.ldu_lane_kernel_smem.argtypes = [i, i]
+        lib.ldu_lane_kernel_smem.restype = i
+        if lib.ldu_lane_max_width() != MAXW:
+            raise RuntimeError("csrc/ldu_lane.cu's widest block differs from ldu_cuda.MAXW")
+        _LIBS["lane", elem] = lib
+    return _LIBS["lane", elem]
+
+
+def library(elem: int, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded kernel library of csrc/ldu.cu with the entry points of
+    float32 (elem 4) or float64 (8), built with ``defines`` (see build) and
+    loaded once per process.  The wrappers launch the plain build's of
+    their dtype."""
+    key = defines, elem
+    if key not in _LIBS:
+        path, _ = build(defines + _elem_define(elem))
         lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for dt in ("f32", "f64"):
-            getattr(lib, f"ldu_factorize_{dt}").argtypes = [p, p, i, p, p, p, p, p]
-            getattr(lib, f"ldu_solve_{dt}").argtypes = [p, p, i, i, i, p, p, p, p, p, p]
-            getattr(lib, f"ldu_matvec_{dt}").argtypes = [p, i, i, i, i, i, p, p, p, p]
-            for fn in ("factorize", "solve", "matvec"):
-                getattr(lib, f"ldu_{fn}_{dt}").restype = i
+        p, i, dt = ctypes.c_void_p, ctypes.c_int, _dtype(elem)
+        getattr(lib, f"ldu_factorize_{dt}").argtypes = [p, p, i, p, p, p, p, p]
+        getattr(lib, f"ldu_solve_{dt}").argtypes = [p, p, i, i, i, p, p, p, p, p, p]
+        getattr(lib, f"ldu_matvec_{dt}").argtypes = [p, i, i, i, i, i, p, p, p, p]
+        for fn in ("factorize", "solve", "matvec"):
+            getattr(lib, f"ldu_{fn}_{dt}").restype = i
         lib.ldu_max_width.restype = i
         lib.ldu_tile.argtypes = [i]
         lib.ldu_tile.restype = i
@@ -180,8 +244,8 @@ def library(defines: tuple = ()) -> ctypes.CDLL:
         if any(lib.ldu_tile(W) != (-1 if width_class(W) == "w32" else tile_width(W))
                for W in range(1, MAXW + 1)):
             raise RuntimeError("csrc/ldu.cu ldu_tile differs from ldu_cuda.tile_width")
-        _LIBS[defines] = lib
-    return _LIBS[defines]
+        _LIBS[key] = lib
+    return _LIBS[key]
 
 
 def _grouped(keys, n_keys=None):
@@ -197,8 +261,10 @@ def _grouped(keys, n_keys=None):
     return order, np.cumsum([0] + counts), [idx for k in order for idx in members[k]]
 
 
-def _csr(sched: Schedule) -> dict:
+def _csr(sched: Schedule, lane: bool = False) -> dict:
     """The schedule's lists as int32 arrays in CSR form (see struct Sched).
+    ``lane``: for the kernels of a lane over a CTA (csrc/ldu_lane.cu), which
+    find slot s at s W² and node n's LU and PS at n W² (``_real_widths``).
 
     Besides the schedule's own lists, the kernels read lists derived from
     them.  Factorize: each node's position in its level (``node_pos``, the
@@ -275,7 +341,7 @@ def _csr(sched: Schedule) -> dict:
         "row_slot": row_slot,
         "slot_b": slot_b,
     }
-    real = _real_widths(sched) if sched.width > 16 else {}
+    real = _real_widths(sched, lane) if sched.width > 16 else {}
     arrays.update({k: real.get(k, []) for k in _ARRAYS[_ARRAYS.index("level_tw"):]})
     # the kernels keep diagonal blocks in slots 0..N-1 and stage the solve's
     # edge blocks as the slot range N..S-1
@@ -325,7 +391,7 @@ def _round4(n):
     return -(-n // 4) * 4
 
 
-def _real_widths(sched: Schedule) -> dict:
+def _real_widths(sched: Schedule, lane: bool = False) -> dict:
     """The arrays of the 17..32 and 33..72 classes, at each node's real
     width (struct Sched, csrc/ldu.cu "factorize and solve, 17..32" and
     "factorize, 33..72"): ``level_tw``, the tile each factorize level works
@@ -353,14 +419,18 @@ def _real_widths(sched: Schedule) -> dict:
     (per update, in tgt_upd's order: E_{a,i}'s place, n_i, its pair's X
     tile), ``fin_rec`` / ``bin_rec`` (per solve edge, in fin_e / bin_e's
     order: the edge block's place among the edge blocks, the other node's
-    vector offset (node x W), its width)."""
+    vector offset (node x W), its width).
+
+    ``lane``: the places are the blocks' own in a lane's tensors, slot s at
+    s W² (``slot_off``) and node n's LU and PS at n W² (``node_lu``), for
+    the kernels that keep a lane in global memory; every record follows."""
     nw = np.asarray(sched.node_width, dtype=np.int64)
     N, S, W = sched.n_nodes, sched.n_slots, sched.width
     slot_a = np.zeros(S, dtype=np.int64)
     slot_b = np.zeros(S, dtype=np.int64)
     for (a, b), s in sched.slot.items():
         slot_a[s], slot_b[s] = a, b
-    size = lambda s: _round4(int(nw[slot_a[s]]) * W)
+    size = lambda s: W * W if lane else _round4(int(nw[slot_a[s]]) * W)
     slot_off = np.cumsum([0] + [size(s) for s in range(S)])
     tiles = level_tiles(sched)
     tile = np.zeros(N, dtype=np.int64)
@@ -413,7 +483,7 @@ def _real_widths(sched: Schedule) -> dict:
         "upd_rec": upd_rec,
         "stask_ptr": stask_ptr,
         "stask": stask,
-        "node_lu": np.cumsum([0] + [_round4(int(n) * W) for n in nw]),
+        "node_lu": np.cumsum([0] + [W * W if lane else _round4(int(n) * W) for n in nw]),
         "node_vec": np.cumsum([0] + nw.tolist()),
         "fin_rec": edge_rec(fwd, _grouped(fwd_a, N)[2]),
         "bin_rec": edge_rec(bwd, _grouped(bwd_i, N)[2]),
@@ -471,7 +541,8 @@ def shared_chunk(sched: Schedule, kernel: str, dtype, k: int,
     return kc
 
 
-def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int, kc: int = 1) -> dict:
+def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int, kc: int = 1,
+                lane: bool = False) -> dict:
     """The real-width kernels' shared-memory arrays (bytes), at real widths
     (``_real_widths``): the factorize (17..72) stages every slot's real
     rows, and keeps every node's LU tile, reciprocals and PS in compact form
@@ -479,14 +550,17 @@ def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int, kc: int =
     solve (17..72) stages the edge blocks' real rows, each node's real rows
     of LU and PS, and its node vectors at stride W; the matvec (17..72)
     stages every slot's real rows, ``kc`` node vectors at stride W and
-    the schedule's index arrays it reads."""
+    the schedule's index arrays it reads.  ``lane``: the kernels of a lane
+    over a CTA, which keep the blocks (the solve: the edge blocks, LU and
+    PS) in global memory: those arrays take no shared memory."""
     real = _real_widths(sched)
+    big = 0 if lane else 1  # the arrays a lane over a CTA keeps in global memory
     off, N = real["slot_off"], sched.n_nodes
     a16 = lambda nbytes: -(-nbytes // 16) * 16  # each array 16-byte aligned
     if kernel == "factorize":
         tvec = int(real["node_tvec"][-1])
         return {
-            "fb": a16(int(off[-1]) * elem),  # every slot's real rows
+            "fb": big * a16(int(off[-1]) * elem),  # every slot's real rows
             "lu": a16(int(real["node_tile"][-1]) * elem),  # every node's LU tile
             "x": a16(real["x_len"] * elem),  # a level's X tiles
             "rd": a16(tvec * elem),  # 1 / diag(U) of every node
@@ -497,22 +571,22 @@ def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int, kc: int =
     W = sched.width
     if kernel == "matvec":
         return {
-            "blocks": a16(int(off[-1]) * elem),  # every slot's real rows
+            "blocks": big * a16(int(off[-1]) * elem),  # every slot's real rows
             "x": kc * N * W * elem,  # the chunk's vectors
             # row_ptr, row_slot, slot_b, slot_off, slot_rc, node_vec, node_w
             "idx": (4 * sched.n_slots + 3 * N + 3) * 4,
         }
     nlu, nvec = int(real["node_lu"][-1]), int(real["node_vec"][-1])
     return {
-        "e": a16(int(off[-1] - off[N]) * elem),  # the edge blocks' real rows (slots N..S-1)
-        "lu": a16(nlu * elem),  # each node's LU, its n real rows
+        "e": big * a16(int(off[-1] - off[N]) * elem),  # the edge blocks' real rows (N..S-1)
+        "lu": big * a16(nlu * elem),  # each node's LU, its n real rows
         "rd": a16(nvec * elem),  # 1 / diag(U)
         "psc": a16(nvec * elem),  # PS row scales
         "b": a16(N * W * elem),  # right-hand side, at stride W
         "t": a16(N * W * elem),  # D^{-1} b of the forward pass
         "x": a16(N * W * elem),  # solution
         "y": 0,
-        "ps": a16(nlu * elem),  # each node's PS, its n real rows, as staged
+        "ps": big * a16(nlu * elem),  # each node's PS, its n real rows, as staged
         "prow": a16(nvec * 4),  # PS row sources
         "si": a16(buf_len * 4),  # the schedule
     }
@@ -528,8 +602,11 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     its right-hand sides.  ``buf_len`` is the length of the schedule's
     int32 CSR buffer, copied to shared memory.  Tiles are padded to
     ``tile_width`` of the schedule's width class (W <= 16), or each node
-    kept at its real rows (``_real_sizes``: the kernels of 17..72).  Raises
-    ValueError for a CTA over the 227 KB it can have."""
+    kept at its real rows (``_real_sizes``: the kernels of 17..72).  Where a
+    lane of 17..72 at its real rows takes more than a CTA can have (one
+    vector: kc = 1), the layout is that of the kernels that keep the lane in
+    global memory (csrc/ldu_lane.cu: ``lane_variant``).  Raises ValueError
+    for a CTA over the 227 KB it can have."""
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
@@ -537,8 +614,9 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     TW = 0 if cls == "w32" else tile_width(sched.width)
     NGROUPS = WIDTH_CLASSES[cls][1]
     N, S, WW, TILE = sched.n_nodes, sched.n_slots, sched.width**2, TW * TW
+    lane = lane_variant(sched, kernel, dtype, buf_len)
     if cls != "w16" and kernel in ("factorize", "solve", "matvec"):
-        sizes = _real_sizes(sched, kernel, elem, buf_len, kc)
+        sizes = _real_sizes(sched, kernel, elem, buf_len, kc, lane)
     elif kernel == "factorize":
         K = _max_nodes(sched)
         sizes = {
@@ -593,8 +671,41 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
         raise ValueError(
             f"{kernel}: one lane needs {offsets['bytes']} bytes of shared memory ({dtype}), "
             f"over the {SMEM_LIMIT}-byte limit of a CTA"
+            + (" with its blocks in global memory" if lane else "")
         )
     return offsets
+
+
+def lane_variant(sched: Schedule, kernel: str, dtype, buf_len: int | None = None) -> bool:
+    """Whether ``kernel`` (factorize, solve or matvec) takes the kernels of
+    a lane over a CTA (csrc/ldu_lane.cu) for this schedule and dtype: a
+    schedule of 17..72 whose lane at its real rows, with one vector, takes
+    more shared memory than a CTA can have."""
+    if width_class(sched.width) == "w16" or kernel not in ("factorize", "solve", "matvec"):
+        return False
+    if buf_len is None:
+        buf_len = sum(a.size for a in _csr(sched).values())
+    elem = torch.empty((), dtype=dtype).element_size()
+    return sum(_real_sizes(sched, kernel, elem, buf_len).values()) > SMEM_LIMIT
+
+
+def variant(sched: Schedule, kernel: str, dtype, buf_len: int | None = None) -> str:
+    """The kernels a launch of ``kernel`` (factorize, solve or matvec, one
+    right-hand side a factorization) takes for this schedule and dtype: its
+    width class, or "lane" where the lane does not fit a CTA."""
+    return "lane" if lane_variant(sched, kernel, dtype, buf_len) else width_class(sched.width)
+
+
+def _device_csr(sched: Schedule, device, lane: bool = False):
+    """``_csr(sched, lane)`` as one int32 buffer on ``device`` and the C
+    struct Sched that points into it: (buffer, struct)."""
+    arrays = _csr(sched, lane)
+    buf = torch.as_tensor(np.concatenate([arrays[n] for n in _ARRAYS]),
+                          device=torch.device(device))
+    offs = np.cumsum([0] + [arrays[n].size for n in _ARRAYS])
+    base = buf.data_ptr()
+    return buf, _Sched(len(sched.levels), sched.n_nodes, sched.n_slots, sched.width,
+                       *(base + 4 * int(o) for o in offs[:-1]), base, buf.numel())
 
 
 class DeviceSchedule:
@@ -604,17 +715,17 @@ class DeviceSchedule:
     def __init__(self, sched: Schedule, device):
         self.sched = sched
         self.plan = ldu.LduPlan(sched, device)
-        arrays = _csr(sched)
-        self.buf = torch.as_tensor(
-            np.concatenate([arrays[n] for n in _ARRAYS]), device=torch.device(device)
-        )
-        offs = np.cumsum([0] + [arrays[n].size for n in _ARRAYS])
-        base = self.buf.data_ptr()
-        self.struct = _Sched(
-            len(sched.levels), sched.n_nodes, sched.n_slots, sched.width,
-            *(base + 4 * int(o) for o in offs[:-1]), base, self.buf.numel(),
-        )
+        self.buf, self.struct = _device_csr(sched, device)
         self._layouts = {}
+        self._lane = None
+
+    def lane_struct(self):
+        """The C struct of the schedule for the kernels of a lane over a CTA
+        (``_csr(sched, lane=True)``: slot s at s W², node n's LU and PS at
+        n W²), on this device, made at first use (its buffer kept with it)."""
+        if self._lane is None:
+            self._lane = _device_csr(self.sched, self.buf.device, lane=True)
+        return self._lane[1]
 
     def layout(self, kernel: str, dtype, kc: int = 1):
         """``smem_layout`` of this schedule as its C struct (for "matvec":
@@ -625,6 +736,13 @@ class DeviceSchedule:
             struct = _LAYOUT_STRUCTS.get(kernel)
             self._layouts[key] = (struct(*(offsets[n] for n, _ in struct._fields_))
                                   if struct else offsets)
+        return self._layouts[key]
+
+    def lane(self, kernel: str, dtype) -> bool:
+        """``lane_variant`` of this schedule, made once per kernel and dtype."""
+        key = "lane", kernel, dtype
+        if key not in self._layouts:
+            self._layouts[key] = lane_variant(self.sched, kernel, dtype, self.buf.numel())
         return self._layouts[key]
 
     def chunk(self, kernel: str, dtype, k: int) -> int:
@@ -665,18 +783,21 @@ def _cuda_args(ds: DeviceSchedule, rhs_per_fact=1, **tensors):
     return suffix, B, first.device
 
 
-def _launch(wrapper, suffix, ds, device, k, *args):
+def _launch(wrapper, suffix, ds, device, k, lane, *args):
     """Launch ldu_<name>_<suffix> (the kernel of the schedule's width class)
-    on the device's current stream, and count it on its wrapper (with k > 1
-    right-hand sides a factorization also in ``shared_launches``)."""
-    name = wrapper.__name__
-    fn = getattr(library(), f"ldu_{name}_{suffix}")
+    or, with ``lane``, ldu_lane_<name>_<suffix> (csrc/ldu_lane.cu, on the
+    schedule's lane struct) on the device's current stream, and count it on
+    its wrapper (with k > 1 right-hand sides a factorization also in
+    ``shared_launches``)."""
+    name, elem = wrapper.__name__, 4 if suffix == "f32" else 8
+    fn = getattr(lane_library(elem), f"ldu_lane_{name}_{suffix}") if lane else getattr(
+        library(elem=elem), f"ldu_{name}_{suffix}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(ctypes.byref(ds.struct), *args, stream)
+        rc = fn(ctypes.byref(ds.lane_struct() if lane else ds.struct), *args, stream)
     if rc != 0:
-        raise RuntimeError(f"ldu_{name}_{suffix}: CUDA error {rc}")
-    cls = width_class(ds.sched.width)
+        raise RuntimeError(f"ldu_{'lane_' if lane else ''}{name}_{suffix}: CUDA error {rc}")
+    cls = "lane" if lane else width_class(ds.sched.width)
     wrapper.launches += 1
     wrapper.class_launches[cls] += 1
     if k > 1:
@@ -724,7 +845,8 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
     lu = blocks.new_empty(B, N, W, W)
     ps = blocks.new_empty(B, N, W, W)
     if B:
-        _launch(factorize, suffix, ds, dev, 1, ctypes.byref(layout), B,
+        _launch(factorize, suffix, ds, dev, 1, ds.lane("factorize", blocks.dtype),
+                ctypes.byref(layout), B,
                 blocks.data_ptr(), fb.data_ptr(), lu.data_ptr(), ps.data_ptr())
     return fb, lu, ps
 
@@ -767,8 +889,10 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) ->
         layout = ds.layout("solve", rhs.dtype)
     out = torch.empty_like(rhs)
     if B:
-        _launch(solve, suffix, ds, dev, k, ctypes.byref(layout), B, k, kc,
-                fb.data_ptr(), lu.data_ptr(), ps.data_ptr(), rhs.data_ptr(), out.data_ptr())
+        lane = kc == 0 and ds.lane("solve", rhs.dtype)
+        _launch(solve, suffix, ds, dev, k, lane, ctypes.byref(layout), B, k,
+                *(() if lane else (kc,)), fb.data_ptr(), lu.data_ptr(), ps.data_ptr(),
+                rhs.data_ptr(), out.data_ptr())
     return out
 
 
@@ -796,8 +920,8 @@ def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor,
     layout = ds.layout("matvec", x.dtype, kc)
     out = torch.empty_like(x)
     if B:
-        _launch(matvec, suffix, ds, dev, k, B, k, kc, layout["x"], layout["bytes"],
-                blocks.data_ptr(), x.data_ptr(), out.data_ptr())
+        _launch(matvec, suffix, ds, dev, k, ds.lane("matvec", x.dtype), B, k, kc, layout["x"],
+                layout["bytes"], blocks.data_ptr(), x.data_ptr(), out.data_ptr())
     return out
 
 
@@ -816,8 +940,8 @@ def reset_launches():
     """Set every wrapper's launch counts to 0."""
     for fn in (factorize, solve, matvec):
         fn.launches = 0
-        fn.class_launches = dict.fromkeys(WIDTH_CLASSES, 0)
-        fn.shared_launches = dict.fromkeys(WIDTH_CLASSES, 0)
+        fn.class_launches = dict.fromkeys(VARIANTS, 0)
+        fn.shared_launches = dict.fromkeys(VARIANTS, 0)
 
 
 reset_launches()

@@ -3,7 +3,9 @@
 Parses links and joints with xml.etree, then runs the placement pass: each
 body's frame is its inertial (COM) frame; joint anchors and orientation
 offsets come from the chained URDF joint origins, root → leaves.  With
-``floating=True`` a floating-base joint is prepended.  Each body keeps the
+``floating=True`` a floating-base joint is prepended.  ``<loop_joint>``
+elements close kinematic loops (fourbar): they are appended after the tree's
+joints, their vertices in the two links' body frames.  Each body keeps the
 shape of its ``<visual>`` geometry (``Body.shape``), from which the zoo's
 models read contact radii and lengths; a mesh is kept as its file name
 only, since the simulation never reads a mesh file.
@@ -141,8 +143,7 @@ def parse_urdf_defs(path, floating=False, parse_dampers=True):
 
     links = {l.get("name"): l for l in root.findall("link")}
     xjoints = root.findall("joint")
-    if root.findall("loop_joint"):
-        raise NotImplementedError("loop joints are not ported yet")
+    xloops = root.findall("loop_joint")
 
     inert = {name: _inertial(el) for name, el in links.items()}
     child_names = {j.find("child").get("link") for j in xjoints}
@@ -251,6 +252,35 @@ def parse_urdf_defs(path, floating=False, parse_dampers=True):
             break
         if not progressed:
             raise ValueError(f"unplaceable joints: {[r['name'] for r in pending]}")
+
+    def joint_world(nm):  # the world pose of the joint that placed link nm
+        if nm == root_link and nm not in parent_joint:
+            return np.zeros(3), np.array([1.0, 0, 0, 0])
+        pj = parent_joint[nm]
+        return jxw[pj["name"]], jqw[pj["name"]]
+
+    for xl in xloops:  # each end's pose is in its link's joint frame
+        l1, l2 = xl.find("link1"), xl.find("link2")
+        n1, n2 = l1.get("link"), l2.get("link")
+        x1, q1 = _pose(l1)
+        x2, _ = _pose(l2)
+        ax = xl.find("axis")
+        axis = np.fromstring(ax.get("xyz"), sep=" ") if ax is not None else np.array([1.0, 0, 0])
+        (xj1, qj1), (xj2, qj2) = joint_world(n1), joint_world(n2)
+        qb1, qb2 = bqw[n1], bqw[n2]
+        qjl1 = nplie.qmul(_qconj(qb1), nplie.qmul(qj1, q1))
+        jointdefs.append(
+            bd.JointDef(
+                kind=URDF_JOINT_KINDS[xl.get("type")],
+                parent=out_parent(n1),
+                child=n2,
+                axis=nplie.rotate(axis, qjl1),
+                parent_vertex=nplie.rotate(xj1 + nplie.rotate(x1, qj1) - bxw[n1], _qconj(qb1)),
+                child_vertex=nplie.rotate(xj2 + nplie.rotate(x2, qj2) - bxw[n2], _qconj(qb2)),
+                orientation_offset=nplie.qmul(qjl1, qb2),
+                name=xl.get("name"),
+            )
+        )
 
     bodies = []
     for n in body_names:

@@ -51,7 +51,7 @@ def main():
     C.check(torch.cuda.is_available(), "no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    L.library()
+    getattr(L, "build_all", L.library)()  # a checkout before the libraries a dtype: one
     dev, f32 = torch.device("cuda"), torch.float32
     out = {"root": os.path.abspath(args.root), "device": smi, "ms": {}}
     cases = (("quadruped", 256, dict(timestep=0.05)), ("humanoid", 64, {}), ("walker", 64, {}),

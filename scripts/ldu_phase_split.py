@@ -140,12 +140,9 @@ def main():
     C.check(torch.cuda.is_available(), "no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    lib = L.library(("LDU_PHASES",))
+    lib = L.library(4, ("LDU_PHASES",))  # the float32 entry points, with the stamps
     per_cta = lib.ldu_stamps_per_cta()
     us = sm_cycles_per_s() / 1e6
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ldu_factorize_f32.argtypes = [p, p, i, p, p, p, p, p]
-    lib.ldu_solve_f32.argtypes = [p, p, i, i, i, p, p, p, p, p, p]
     dev, f32 = torch.device("cuda"), torch.float32
     out = {"device": smi, "sm_cycles_per_us": us, "split": {}}
     for name in args.models.split(","):

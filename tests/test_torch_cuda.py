@@ -178,8 +178,9 @@ def _check_class(name, dtype, lanes, k=1):
     against the plain solve on the same factors, then refined once), and
     in the 17..32 and 33..72 classes every block LU and PS bitwise equal to
     ldu.blu_factor's of the block the kernel factored (float32 and
-    float64); a lane that does not fit a CTA raises ValueError (never the
-    plain version)."""
+    float64); a lane that does not fit a CTA in the real-width classes takes
+    the lane kernels (csrc/ldu_lane.cu: atlas), in W <= 16 raises
+    ValueError (never the plain version)."""
     f32 = dtype == torch.float32
     tol = 2e-5 if f32 else 1e-10
     sched, blocks, r = model_kkt(name, dtype, "cuda", lanes)
@@ -190,7 +191,8 @@ def _check_class(name, dtype, lanes, k=1):
         with pytest.raises(ValueError, match="bytes of shared memory"):
             L.factorize(ds, blocks)
         return
-    cls = L.width_class(sched.width)
+    cls = L.variant(sched, "factorize", dtype)
+    assert all(L.variant(sched, n, dtype) == cls for n in ("solve", "matvec"))
     L.reset_launches()
     fact = L.factorize(ds, blocks)
     ref = ldu.factorize(ds.plan, blocks)
@@ -227,16 +229,27 @@ def _check_class(name, dtype, lanes, k=1):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [1, 3, 64])
 @pytest.mark.parametrize("name", ["pendulum", "snake", "hopper", "walker", "humanoid",
-                                  "twister", "block"])
+                                  "twister", "block", "uuv", "block2d", "quadrotor", "atlas"])
 def test_width_classes_match_plain_on_cuda(name, lanes):
     """Each width class (pendulum W=6; snake, hopper, walker, humanoid,
-    twister W=22; block W=70) against the plain versions, float32 and
-    float64, odd batches included; block's float64 lane fits a CTA at the
-    factorize's real widths and runs through the kernels."""
+    twister, uuv W=22; block, quadrotor W=70, block2d W=38) and the lane
+    kernels (atlas, W=38, a lane over a CTA) against the plain versions,
+    float32 and float64, odd batches included; block's float64 lane fits a
+    CTA at the factorize's real widths and runs through the kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     for dtype in (torch.float32, torch.float64):
         _check_class(name, dtype, lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 54])
+def test_lane_kernels_several_rhs_on_cuda(k):
+    """Atlas's lane kernels with k right-hand sides a factorization (a CTA
+    a column) and the matvec at k vectors, float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    _check_class("atlas", torch.float32, 2, k)
 
 
 @pytest.mark.cuda

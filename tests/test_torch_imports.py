@@ -45,3 +45,23 @@ def test_port_sources_name_no_jax():
                 s = line.strip()
                 assert not s.startswith(("import jax", "from jax", "import dojo_tpu ",
                                          "from dojo_tpu ", "from dojo_tpu.")), f"{path}: {s}"
+
+
+def test_port_assets_are_dojo_tpu_urdfs():
+    """The port's assets are URDFs copied from dojo_tpu/assets unchanged
+    (the thirteen its models load), its models read them from its own
+    directory, and no mesh file is copied: a mesh stays a file name
+    (visuals only)."""
+    port = os.path.join(ROOT, "dojo_tpu_torch", "assets")
+    names = sorted(os.listdir(port))
+    assert names == sorted([
+        "ant.urdf", "atlas_simple.urdf", "fourbar.urdf", "gazebo_a1.urdf", "halfcheetah.urdf",
+        "hopper.urdf", "humanoid.urdf", "mini_tortuga_fixed_rotors.urdf", "model.urdf",
+        "panda_end_effector.urdf", "pelican_fixed_rotors.urdf", "walker.urdf", "youbot.urdf"])
+    for name in names:
+        with open(os.path.join(port, name), "rb") as f, \
+                open(os.path.join(ROOT, "dojo_tpu", "assets", name), "rb") as g:
+            assert f.read() == g.read(), name
+    from dojo_tpu_torch.models import locomotion, misc
+
+    assert locomotion.ASSETS == misc.ASSETS and os.path.samefile(misc.ASSETS, port)

@@ -14,8 +14,8 @@ are identity rows and pad terms exact zeros.  Here, on the plain versions
 in float32, on the KKTs of humanoid, walker, snake and block
 (chip_smoke.model_kkt at B=2):
   - the assembler's pad is the schedule's pad_eye, exactly, for every
-    registered model with W > 16 (hopper and twister assembled apart, in
-    float64 at B=1);
+    registered model with W > 16 (hopper, twister, uuv, block2d, quadrotor
+    and atlas assembled apart, in float64 at B=1);
   - each node's ldu.blu_factor at the level's width equals, bitwise, its
     real block's at the node's width on the real part, and its pad is
     identity in LU and PS;
@@ -43,7 +43,9 @@ from dojo_tpu_torch.graph import build_schedule
 
 MODELS = ("humanoid", "walker", "snake", "block")
 # the registered models with W > 16 that the fixture does not assemble
-OTHER_WIDE = ("hopper", "twister")
+OTHER_WIDE = ("hopper", "twister", "uuv", "block2d", "quadrotor", "atlas")
+# those with a node wider than 32 (a level of the factorize over 32 wide)
+WIDE_NODE = ("block", "block2d", "quadrotor", "atlas")
 
 
 @pytest.fixture(scope="module", params=MODELS)
@@ -84,10 +86,13 @@ def test_assembler_pad_is_pad_eye(factored):
 
 
 def test_wide_models_listed():
-    """MODELS and OTHER_WIDE are every registered model with W > 16."""
-    wide = {m for m in models.registered_models()
-            if build_schedule(models.get_mechanism(m, device="cpu").topo).width > 16}
+    """MODELS and OTHER_WIDE are every registered model with W > 16 (fourbar,
+    a kinematic loop, has no schedule)."""
+    scheds = {m: build_schedule(models.get_mechanism(m, device="cpu").topo)
+              for m in models.registered_models()}
+    wide = {m for m, s in scheds.items() if s is not None and s.width > 16}
     assert wide == set(MODELS + OTHER_WIDE)
+    assert [m for m, s in scheds.items() if s is None] == ["fourbar"]
 
 
 @pytest.mark.parametrize("name", OTHER_WIDE)
@@ -218,7 +223,8 @@ def test_row_node_solve_matches_blu_solve(factored):
 
 @pytest.mark.parametrize("name", MODELS + OTHER_WIDE)
 def test_real_width_schedule_places(name):
-    """_csr's real-width arrays (17..32, and block's W = 70): each level's
+    """_csr's real-width arrays (17..32, and 33..72: block's, block2d's,
+    quadrotor's and atlas's): each level's
     tile (its own, or where the tiles up to 32 would switch more than once
     their widest; a level over 32 wide its width rounded up to odd); each
     slot's place holds its n_a real rows,
@@ -251,7 +257,7 @@ def test_real_width_schedule_places(name):
     if sum(x != y for x, y in zip(narrow, narrow[1:])) > 1:
         tiles = [t if t > 32 else max(narrow) for t in tiles]
     assert a["level_tw"].tolist() == tiles
-    assert (name == "block") == any(t > 32 for t in tiles)
+    assert (name in WIDE_NODE) == any(t > 32 for t in tiles)
     x_len = L._real_widths(sched)["x_len"]
     for k, lv in enumerate(sched.levels):
         p0, p1 = a["pair_ptr"][k], a["pair_ptr"][k + 1]

@@ -4,12 +4,17 @@ state to 1e-12, the registry, the URDF shapes the locomotion models read
 their contact radii from, and the body helpers' inertias.
 
 Models: the eleven of bench_zoo.py besides the quadruped (which
-tests/test_torch_model.py covers), and slider, nslider and twister, which
-come with the same code.  Each reference is built once per module."""
+tests/test_torch_model.py covers), slider, nslider and twister, which
+come with the same code, and the eleven others of dojo_tpu's zoo (the
+fixed-joint merge, loop joints: fourbar has no schedule).  Each reference
+is built once per module; dojo_tpu's initial states are made with its jit
+off (op by op: the same arithmetic, a few times faster than tracing and
+compiling its minimal-coordinate maps per model)."""
 
 import dataclasses
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -23,15 +28,26 @@ from dojo_tpu_torch.core import Params
 from dojo_tpu_torch.graph import build_schedule
 
 MODELS = ("pendulum", "npendulum", "cartpole", "block", "sphere", "snake", "hopper",
-          "halfcheetah", "walker", "ant", "humanoid", "slider", "nslider", "twister")
+          "halfcheetah", "walker", "ant", "humanoid", "slider", "nslider", "twister",
+          "dzhanibekov", "tippetop", "raiberthopper", "block2d", "quadrotor", "uuv", "panda",
+          "youbot", "exoskeleton", "atlas", "fourbar")
 # bench_zoo's schedules: (W, N, S, levels, contacts)
 SCHEDULES = {
     "pendulum": (6, 2, 4, 2, 0), "npendulum": (6, 10, 36, 10, 0), "cartpole": (6, 4, 12, 4, 0),
     "sphere": (14, 2, 4, 2, 1), "halfcheetah": (14, 14, 52, 8, 6), "ant": (14, 26, 100, 8, 9),
     "snake": (22, 4, 12, 4, 4), "hopper": (22, 8, 28, 8, 5), "walker": (22, 14, 52, 8, 9),
     "humanoid": (22, 26, 100, 12, 4), "block": (70, 2, 4, 2, 8),
+    "dzhanibekov": (6, 4, 12, 4, 0), "tippetop": (14, 4, 12, 4, 2),
+    "raiberthopper": (14, 4, 12, 4, 2), "block2d": (38, 2, 4, 2, 4),
+    "quadrotor": (70, 2, 4, 2, 8), "uuv": (22, 2, 4, 2, 2), "panda": (14, 18, 68, 16, 0),
+    "youbot": (14, 24, 92, 14, 0), "exoskeleton": (14, 8, 28, 8, 0),
+    "atlas": (38, 62, 244, 22, 8),
 }
-URDFS = ("hopper", "halfcheetah", "walker", "ant", "humanoid")
+NO_SCHEDULE = ("fourbar",)  # a kinematic loop: the dense path
+URDFS = ("hopper", "halfcheetah", "walker", "ant", "humanoid", "atlas_simple",
+         "pelican_fixed_rotors", "mini_tortuga_fixed_rotors", "panda_end_effector", "youbot",
+         "model", "fourbar")
+FLOATING = ("ant", "humanoid", "atlas_simple", "pelican_fixed_rotors")
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "dojo_tpu_torch", "assets")
 PARAM_FIELDS = [f.name for f in dataclasses.fields(Params)]
@@ -45,7 +61,9 @@ def pair(request):
     if name not in _PAIRS:
         jm = jmodels.get_mechanism(name)
         tm = models.get_mechanism(name, device="cpu")
-        _PAIRS[name] = (name, jm, jmodels.initialize(jm, name), tm, models.initialize(tm, name))
+        with jax.disable_jit():
+            js = jmodels.initialize(jm, name)
+        _PAIRS[name] = (name, jm, js, tm, models.initialize(tm, name))
     return _PAIRS[name]
 
 
@@ -72,6 +90,9 @@ def test_topology_matches(pair):
 def test_schedule_matches(pair):
     name, jm, _, tm, _ = pair
     ref, got = j_build_schedule(jm.topo), build_schedule(tm.topo)
+    if name in NO_SCHEDULE:
+        assert ref is None and got is None and tm.topo.loop_joints == jm.topo.loop_joints != ()
+        return
     assert (got.n_nodes, got.n_slots, got.width) == (ref.n_nodes, ref.n_slots, ref.width)
     if name in SCHEDULES:
         W, N, S, n_levels, nc = SCHEDULES[name]
@@ -101,12 +122,12 @@ def test_initial_state_matches(pair):
 
 
 def test_registry_matches():
-    """Every name the port registers, dojo_tpu registers too, and every
-    bench_zoo model is among them."""
+    """The port registers every name dojo_tpu registers (its 26), and each
+    is in MODELS or the quadruped (tests/test_torch_model.py)."""
     ported = models.registered_models()
     assert ported == sorted(ported)
-    assert set(ported) <= set(jmodels.registered_models())
-    assert set(MODELS) | {"quadruped"} <= set(ported)
+    assert ported == jmodels.registered_models() and len(ported) == 26
+    assert set(MODELS) | {"quadruped"} == set(ported)
 
 
 def _plain(shape):
@@ -126,19 +147,25 @@ def _plain(shape):
 @pytest.mark.parametrize("name", URDFS)
 def test_urdf_shapes_match(name):
     """Body.shape of every parsed link, as dojo_tpu parses it (a mesh keeps
-    its file name, which dojo_tpu resolves against its own assets)."""
+    its file name, whose base name dojo_tpu resolves against its own
+    assets)."""
     path = os.path.join(ASSETS, f"{name}.urdf")
-    got, _ = urdf.parse_urdf_defs(path, floating=name in ("ant", "humanoid"))
-    ref, _ = jurdf.parse_urdf_defs(path, floating=name in ("ant", "humanoid"))
+    got, _ = urdf.parse_urdf_defs(path, floating=name in FLOATING)
+    ref, _ = jurdf.parse_urdf_defs(path, floating=name in FLOATING)
     assert [b.name for b in got] == [b.name for b in ref]
-    with_radius = 0
+    shaped = with_radius = 0
     for g, r in zip(got, ref):
         gs, rs = _plain(g.shape), _plain(r.shape)
-        if rs is not None and rs["type"] == "mesh":
-            rs["path"] = gs["path"]
+        for a, b in ((gs, rs), *zip((gs or {}).get("shapes", []), (rs or {}).get("shapes", []))):
+            if b is not None and b["type"] == "mesh":  # dojo_tpu's path into its own assets
+                assert os.path.basename(b["path"]) == os.path.basename(a["path"])
+                b["path"] = a["path"]
         assert gs == rs, g.name
+        shaped += gs is not None
         with_radius += gs is not None and "radius" in gs
-    assert with_radius > 0
+    assert shaped > 0
+    if name in URDFS[:5]:  # the locomotion models read their contact radii from these
+        assert with_radius > 0
 
 
 @pytest.mark.parametrize("helper, args", [

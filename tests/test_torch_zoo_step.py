@@ -27,6 +27,11 @@ from dojo_tpu_torch.simulate import make_step
 
 OPTS = dict(rtol=1e-6, btol=1e-4, max_iter=30)
 FIELDS = ("x", "q", "v", "w")
+# w and the next state agree to 1e-8, except atlas's (a 436-dim KKT with
+# joint springs): its two solves, each within rtol = 1e-6, part by up to
+# 3.8e-8 in w (12 of 872 entries) after the same 8 iterations; held to
+# rtol's 1e-6
+ATOL = {"atlas": 1e-6}
 # the sphere rolls at 1 m/s on the ground: in float64 neither package brings
 # its cone violation under btol within max_iter, on either lane
 FAIL_F64 = {"sphere"}
@@ -43,6 +48,17 @@ SECOND_LANE = {
     "walker": {"body_position": (0.0, -0.01)},
     "ant": {"body_position": (0, 0, 0.6)},
     "humanoid": {"body_position": (0, 0, 1.3)},
+    "dzhanibekov": {"angular_velocity": (0.5, 2.0, 0.1)},
+    "tippetop": {"angular_velocity": (0.0, 0.01, 30.0)},
+    "raiberthopper": {"body_position": (0, 0, -0.001)},
+    "block2d": {"position": (0.0, 0.0), "velocity": (0.3, 0.0)},
+    "quadrotor": {"body_position": (0, 0, 0.22)},
+    "uuv": {"body_position": (0, 0, 0.5)},
+    "panda": {"joint_angles": (0.1, 0.4, 0.0, -0.6, 0.0, 0.6, 0.1)},
+    "youbot": {"arm_angles": (0.1, 0.2, -0.2, 0.1, 0.0)},
+    "exoskeleton": {"joint_angles": (1.4, 1.3, 0.1, -0.3)},
+    "atlas": {"body_position": (0, 0, 0.9385)},
+    "fourbar": {"inner_angle": 0.25},
 }
 
 
@@ -84,9 +100,10 @@ def check_step(name):
     np.testing.assert_array_equal(info.success.numpy(), ref_info["success"])
     assert bool(info.success.all()) == (name not in FAIL_F64)
     np.testing.assert_array_equal(info.iterations.numpy(), ref_info["iterations"])
-    np.testing.assert_allclose(info.w.numpy(), ref_info["w"], rtol=0, atol=1e-8)
+    atol = ATOL.get(name, 1e-8)
+    np.testing.assert_allclose(info.w.numpy(), ref_info["w"], rtol=0, atol=atol)
     for f in FIELDS:
-        np.testing.assert_allclose(getattr(s, f).numpy(), ref_state[f], rtol=0, atol=1e-8,
+        np.testing.assert_allclose(getattr(s, f).numpy(), ref_state[f], rtol=0, atol=atol,
                                    err_msg=f)
     assert not info.rescued.any()
     return info
