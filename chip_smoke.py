@@ -5,10 +5,12 @@
 
 Phases, each printed as one JSON line with elapsed seconds:
   device   — card name, and name + power limit from nvidia-smi;
-  build    — nvcc builds of dojo_tpu_torch/csrc/ldu.cu and csrc/ldu_lane.cu
-             (the kernels for a lane over a CTA), each for float32 and for
-             float64, the four nvcc processes at once, with each one's
-             seconds;
+  build    — nvcc builds of dojo_tpu_torch/csrc/ldu.cu for float32 and
+             for float64 and of csrc/ldu_lane.cu (the kernels for a lane
+             over a CTA) for each dtype and kernel, the eight nvcc
+             processes at once, with each one's seconds; the packed
+             factorize's two, the longest, go on while the phases up to
+             atlas run (build_late: the wait for them before atlas);
   kernels  — the three block-LDU kernels against their plain PyTorch
              versions on the quadruped KKT at B=256, float32 (factorize
              also on L·U = PS·D, and each block LU bitwise against the
@@ -63,10 +65,12 @@ Phases, each printed as one JSON line with elapsed seconds:
              (quadrotor and block2d on 33–72, uuv on 17–32) through their
              class's kernels against the plain versions, block LUs bitwise,
              with times and both bounds.
-  atlas    — atlas's drop (a lane over a CTA's shared memory): its KKT
-             through the kernels of csrc/ldu_lane.cu against the plain
-             versions (float32, B=64, kernels-line rows factorize_lane,
-             solve_lane, matvec_lane; float64, B=8, atlas_kkt); then one
+  atlas    — atlas's drop (a lane over a CTA's shared memory at its real
+             rows): its KKT through the kernels of csrc/ldu_lane.cu (the
+             packed factorize and solve, the lane matvec) against the
+             plain versions (float32, B=64, kernels-line rows
+             factorize_packed, solve_packed, matvec_lane; float64, B=8,
+             atlas_kkt), with the variant each kernel takes; then one
              float32 step on 8 lanes (not gated: dojo_tpu fails it too) and
              ATLAS_K float64 steps on 32 lanes held to success, the
              smallest signed distance and finite states.
@@ -136,7 +140,10 @@ ZOO_REFERENCE_FAILS = frozenset({"npendulum", "snake", "hopper", "halfcheetah", 
                                  "humanoid"})
 # the model whose KKT times each width class's kernels in the kernels line
 CLASS_MODEL = {"w16": "quadruped", "w32": "humanoid", "w72": "block"}
-CLASS_NAME = {"w16": "", "w32": "_w17_32", "w72": "_w33_72", "lane": "_lane"}
+CLASS_NAME = {"w16": "", "w32": "_w17_32", "w72": "_w33_72", "packed": "_packed",
+              "lane": "_lane"}
+# the variant each kernel takes on atlas's lane (ldu_cuda.variant), both dtypes
+ATLAS_VARIANTS = {"factorize": "packed", "solve": "packed", "matvec": "lane"}
 # further models whose KKT times their class's kernels, with rows of their
 # own (<kernel><class>_<model>): walker's nodes are 14 wide, humanoid's 6
 ROW_MODELS = {"walker": "w32"}
@@ -224,6 +231,16 @@ DIFF_FWD_TOL = {"torch.float32": 1e-5, "torch.float64": 1e-8}
 DIFF_SUCCESS = 0.9
 DIFF_JAC_TOL, DIFF_TRACE_TOL = 5e-4, 1e-6
 H100 = {"bytes_per_s": 3.35e12, "f32_flops": 67e12, "f64_flops": 34e12}
+
+
+def build_report(built):
+    """ldu_cuda.start_builds' results as phase build prints them: per
+    library and dtype, its file, seconds and ptxas lines."""
+    return {f"{name}:{'float32' if elem == 4 else 'float64'}": dict(
+        library=os.path.basename(path), seconds=round(sec, 3),
+        ptxas=[ln.strip() for ln in report.splitlines()
+               if any(w in ln for w in ("registers", "spill", "Compiling"))])
+        for (name, elem), (path, report, sec) in built.items()}
 
 
 def emit(phase, **fields):
@@ -517,7 +534,7 @@ def class_launch_counts():
 
 def row_launch_counts():
     """Launches since the last reset per row of the kernels line: each
-    kernel and variant (width class, or "lane") with one right-hand side a
+    kernel and variant (width class, "packed" or "lane") with one right-hand side a
     factorization, and as
     `solve_shared` / `matvec_shared` the W ≤ 16 launches with k > 1 (the
     shared-factor solve kernel, and the matvec at k columns)."""
@@ -685,7 +702,7 @@ REPLACES = {
 
 def kernel_rows(ds, blocks, fact, rhs, x, mag, errors, model, suffix="", reps=20, plain_reps=3):
     """One kernels-line row per kernel of the schedule's width class (or of
-    the variant "lane", csrc/ldu_lane.cu, where the lane does not fit a
+    the variants "packed" and "lane", csrc/ldu_lane.cu, where the lane does not fit a
     CTA), named <kernel><class><suffix>: times at these inputs and for one lane
     (factorize, solve), the plain versions' and the BSR product's times
     (matvec), the bound (work(): W-wide blocks) and the bound at real
@@ -721,14 +738,16 @@ def kernel_rows(ds, blocks, fact, rhs, x, mag, errors, model, suffix="", reps=20
         # the cap the runtime holds for the kernel, which its launcher sets
         # to the bytes of each launch
         elem = blocks.element_size()
-        smem = (L.lane_library(elem).ldu_lane_kernel_smem(k, elem) if cls == "lane"
+        smem = (L.lane_library(elem, name).ldu_lane_kernel_smem(k, elem)
+                if cls in L.LANE_VARIANTS
                 else L.library(elem=elem).ldu_kernel_smem(k, elem, sched.width))
         check(smem > 0, f"{name}: cannot read the kernel's shared-memory attribute")
         bound_ms, bound_by = bound(*need[name])
         real_ms, real_by = bound(*need_real[name])
         rows[name + CLASS_NAME[cls] + suffix] = dict(
             name=name + CLASS_NAME[cls] + suffix, route="cuda",
-            source="dojo_tpu_torch/csrc/" + ("ldu_lane.cu" if cls == "lane" else "ldu.cu"),
+            source="dojo_tpu_torch/csrc/" + ("ldu_lane.cu" if cls in L.LANE_VARIANTS
+                                             else "ldu.cu"),
             replaces=REPLACES[name], launches=0, max_abs_err=errors[name], ms=ms,
             plain_ms=time_ms(plain, plain_reps, spin=False), bound_ms=bound_ms,
             bound_by=bound_by,
@@ -1402,12 +1421,13 @@ def atlas_case(dtype, device):
 
 def atlas_phase(B=ATLAS_B, B64=ATLAS_B64, step_B=ATLAS_STEP_B, K=ATLAS_K, device="cuda"):
     """Atlas's drop on the card.  (a) Its KKT (W = 38, N = 62, S = 244, 22
-    levels; a lane over a CTA's shared memory) through the kernels of
-    csrc/ldu_lane.cu against the plain versions (check_kernels: block LUs
-    bitwise, the solve unrefined and refined once, the matvec, with the
-    33..72 class's limits) in float32 at B lanes, with the kernels-line rows
-    factorize_lane, solve_lane and matvec_lane, and in float64 at B64 lanes
-    (atlas_kkt); (b) from ATLAS_LIFT above its standing height, ATLAS_K32
+    levels; a lane over a CTA's shared memory at its real rows) through the
+    kernels of csrc/ldu_lane.cu (ATLAS_VARIANTS: the packed factorize and
+    solve, the lane matvec) against the plain versions (check_kernels:
+    block LUs bitwise, the solve unrefined and refined once, the matvec,
+    with the 33..72 class's limits) in float32 at B lanes, with the
+    kernels-line rows factorize_packed, solve_packed and matvec_lane, and in
+    float64 at B64 lanes (atlas_kkt); (b) from ATLAS_LIFT above its standing height, ATLAS_K32
     float32 steps on ATLAS_B32 lanes (finite states; success reported, not
     gated: dojo_tpu fails them too), then K float64 steps on step_B lanes:
     success (the rescue included), the smallest signed distance of any
@@ -1430,13 +1450,14 @@ def atlas_phase(B=ATLAS_B, B64=ATLAS_B64, step_B=ATLAS_STEP_B, K=ATLAS_K, device
         sched, ds, blocks, rhs = model_kkt(mech, state, lanes, dev)
         variants = {n: L.variant(sched, n, dtype, ds.buf.numel())
                     for n in ("factorize", "solve", "matvec")}
-        check(set(variants.values()) == {"lane"},
-              f"atlas {dt}: the kernels {variants} are not those for a lane over a CTA")
+        check(variants == ATLAS_VARIANTS,
+              f"atlas {dt}: the kernels take the variants {variants}, not {ATLAS_VARIANTS}")
         L.reset_launches()
         errors, fact_k, x_k, mag = check_kernels(ds, blocks, rhs, f"atlas {dt}")
         for n, c in class_launch_counts().items():
-            check(c["lane"] > 0 and sum(c.values()) == c["lane"],
-                  f"atlas {dt}: kernel {n} for a lane over a CTA did not run alone: {c}")
+            v = ATLAS_VARIANTS[n]
+            check(c[v] > 0 and sum(c.values()) == c[v],
+                  f"atlas {dt}: kernel {n} of variant {v} did not run alone: {c}")
         need = work(sched, lanes, blocks.element_size())
         need_real = work_real(sched, lanes, blocks.element_size())
         if dt == "float32":
@@ -1508,8 +1529,9 @@ def atlas_phase(B=ATLAS_B, B64=ATLAS_B64, step_B=ATLAS_STEP_B, K=ATLAS_K, device
     check(success >= ATLAS_SUCCESS, f"atlas: float64 success {success} < {ATLAS_SUCCESS}")
     check(min_sdf >= ATLAS_MIN_SDF, f"atlas: smallest signed distance {min_sdf} < {ATLAS_MIN_SDF}")
     for n, c in launches.items():
-        check(c["lane"] > 0, f"atlas: kernel {n} for a lane over a CTA was not launched")
-        check(sum(c.values()) == c["lane"], f"atlas: a kernel of another variant ran: {c}")
+        v = ATLAS_VARIANTS[n]
+        check(c[v] > 0, f"atlas: kernel {n} of variant {v} was not launched")
+        check(sum(c.values()) == c[v], f"atlas: a kernel of another variant ran: {c}")
     return row_launch_counts(), rows
 
 
@@ -1531,19 +1553,20 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # ---- build ----------------------------------------------------------------
-    # the four libraries at once (ldu.cu and ldu_lane.cu, a dtype each), an
-    # nvcc process each
+    # the eight libraries at once (ldu.cu a dtype each, ldu_lane.cu a dtype
+    # and kernel each), an nvcc process each; the packed factorize's two,
+    # the longest builds, which only phase atlas launches, build on while
+    # the phases before it run
     t = time.perf_counter()
-    built = L.build_all()
+    builds = L.start_builds()
+    late = {key: f for key, f in builds.items() if key[0] == "ldu_lane.cu:factorize"}
+    built = {key: f.result() for key, f in builds.items() if key not in late}
     for elem in (4, 8):
         L.library(elem=elem)
-        L.lane_library(elem)
-    emit("build", seconds=round(time.perf_counter() - t, 3),
-         libraries={f"{src}:{'float32' if elem == 4 else 'float64'}": dict(
-             library=os.path.basename(path), seconds=round(sec, 3),
-             ptxas=[ln.strip() for ln in report.splitlines()
-                    if any(w in ln for w in ("registers", "spill", "Compiling"))])
-             for (src, elem), (path, report, sec) in built.items()})
+        for kernel in ("solve", "matvec"):
+            L.lane_library(elem, kernel)
+    emit("build", seconds=round(time.perf_counter() - t, 3), libraries=build_report(built),
+         building=sorted(f"{name}:{elem}" for name, elem in late))
 
     # ---- kernels vs plain versions on the quadruped KKT ----------------------
     f32 = torch.float32
@@ -1647,6 +1670,11 @@ def main():
     table.update(shared_rows)
     zoo_launches, zoo_rows = zoo_phase()
     table.update(zoo_rows)
+    t = time.perf_counter()
+    built = {key: f.result() for key, f in late.items()}
+    for elem in (4, 8):
+        L.lane_library(elem, "factorize")
+    emit("build_late", waited=round(time.perf_counter() - t, 3), libraries=build_report(built))
     atlas_launches, atlas_rows = atlas_phase()
     table.update(atlas_rows)
     diff_launches = diff_phase()

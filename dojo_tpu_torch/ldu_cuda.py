@@ -18,18 +18,20 @@ a row, a barrier a row; the matvec is the 17..32 class's).  The real-width
 kernels take the input blocks' pad as the assembler makes it: zero,
 identity on the diagonal blocks.  A lane of 17..72 whose real-width layout
 does not fit a CTA's shared memory (atlas: W = 38, 62 nodes, 244 slots)
-takes the kernels of csrc/ldu_lane.cu instead: the same code with the
-lane's blocks (and the solve's LU and PS) read and written where they lie
-in global memory, and the rest in shared memory (variant "lane":
-``variant``).  Each wrapper counts its kernel launches in
-``<wrapper>.launches`` (a plain integer, all kernels) and per variant (the
-width classes and "lane", ``VARIANTS``) in ``<wrapper>.class_launches``.
+takes the kernels of csrc/ldu_lane.cu instead (``variant``): the
+factorize and solve with the lane packed at each slot's real rows and
+real columns in one CTA's shared memory (variant "packed"), the matvec
+reading the blocks where they lie in global memory (variant "lane").
+Each wrapper counts its kernel launches in ``<wrapper>.launches`` (a plain
+integer, all kernels) and per variant (the width classes, "packed" and
+"lane", ``VARIANTS``) in ``<wrapper>.class_launches``.
 
 The libraries (csrc/ldu.cu, and csrc/ldu_lane.cu, which includes it; each
 built for one dtype, LDU_ELEM) are built at first use with nvcc for sm_90a
 into ``_build/`` (listed in .gitignore), each keyed on a hash of its
 sources and flags (``build_all`` runs the four nvcc processes at once), and
-loaded with ctypes: a plain C interface, no PyTorch headers.
+loaded with ctypes: a plain C interface, no PyTorch headers.  csrc/ldu_lane.cu
+is built a kernel a library too (``LANE_PARTS``): eight nvcc processes.
 The schedule goes to the device once per solver as one int32 buffer in CSR
 form (``DeviceSchedule``); the kernels loop over it at run time, so one
 build serves every mechanism.
@@ -42,6 +44,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import numpy as np
 import torch
@@ -54,8 +57,9 @@ MAXW = 72  # the widest block the kernels take (csrc/ldu.cu ldu_max_width)
 # width classes: name -> (widest W, groups of a CTA (each works on one block))
 WIDTH_CLASSES = {"w16": (16, 16), "w32": (32, 8), "w72": (MAXW, 1)}
 # the kernels a launch may take: a width class's, or (17..72, a lane over a
-# CTA's shared memory) the lane-in-global-memory kernels of csrc/ldu_lane.cu
-VARIANTS = (*WIDTH_CLASSES, "lane")
+# CTA's shared memory at its real rows) csrc/ldu_lane.cu's packed factorize
+# and solve and its matvec of a lane in global memory
+VARIANTS = (*WIDTH_CLASSES, "packed", "lane")
 
 
 def width_class(W: int) -> str:
@@ -77,6 +81,9 @@ def tile_width(W: int) -> int:
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "ldu.cu")
 LANE_SOURCE = os.path.join(os.path.dirname(SOURCE), "ldu_lane.cu")  # includes ldu.cu
+LANE_VARIANTS = ("packed", "lane")  # the variants of csrc/ldu_lane.cu's libraries
+# csrc/ldu_lane.cu's kernels, a library each (its LDU_LANE_PART) and dtype
+LANE_PARTS = {"factorize": 1, "solve": 2, "matvec": 3}
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -122,6 +129,8 @@ class _SolveLayout(ctypes.Structure):  # C struct SolveLayout (see smem_layout)
 
 _LAYOUT_STRUCTS = {"factorize": _FactLayout, "solve": _SolveLayout,
                    "solve_shared": _SolveLayout}
+_BUILD_LOCK = threading.Lock()
+_PATH_LOCKS: dict = {}  # a lock per library path: one build of it at a time, in a process
 
 
 def _nvcc() -> str:
@@ -138,7 +147,8 @@ def build(defines: tuple = (), source: str = SOURCE) -> tuple[str, str]:
     library unless a build of the same sources and flags exists;
     ``defines`` are macros to set (LDU_PHASES: the real-width kernels' phase
     stamps, scripts/ldu_phase_split.py).  Returns (library path, ptxas
-    report: each kernel's registers, spills and shared memory)."""
+    report: each kernel's registers, spills and shared memory).  A caller
+    that asks for a library another thread is building waits for it."""
     src = b""
     for path in dict.fromkeys((SOURCE, source)):  # ldu_lane.cu includes ldu.cu
         with open(path, "rb") as f:
@@ -148,21 +158,24 @@ def build(defines: tuple = (), source: str = SOURCE) -> tuple[str, str]:
     stem = os.path.splitext(os.path.basename(source))[0].replace("ldu", "dojo_ldu")
     lib = os.path.join(BUILD_DIR, f"lib{stem}_{key}.so")
     log = lib + ".ptxas.txt"
-    if os.path.exists(lib):
-        return lib, open(log).read() if os.path.exists(log) else ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp, source]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    with open(log, "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    with _BUILD_LOCK:
+        lock = _PATH_LOCKS.setdefault(lib, threading.Lock())
+    with lock:
+        if os.path.exists(lib):
+            return lib, open(log).read() if os.path.exists(log) else ""
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *flags, "-Xptxas", "-v", "-o", tmp, source]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        with open(log, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+        return lib, proc.stdout + proc.stderr
 
 
 def _elem_define(elem: int) -> tuple:
@@ -171,22 +184,37 @@ def _elem_define(elem: int) -> tuple:
     return (f"LDU_ELEM={elem}",)
 
 
-def build_all(defines: tuple = ()) -> dict:
-    """Build the libraries the wrappers load, csrc/ldu.cu's and
-    csrc/ldu_lane.cu's for each dtype, at once, an nvcc process each (see
-    build).  Returns {(source file, elem): (library path, ptxas report,
-    seconds)}."""
+def _lane_define(kernel: str) -> tuple:
+    """The macro that builds csrc/ldu_lane.cu's library of one kernel."""
+    return (f"LDU_LANE_PART={LANE_PARTS[kernel]}",)
+
+
+def start_builds(defines: tuple = ()) -> dict:
+    """Start building the libraries the wrappers load, csrc/ldu.cu's for
+    each dtype and csrc/ldu_lane.cu's for each dtype and kernel, at once,
+    an nvcc process each (see build), on threads of their own.  Returns
+    {(library name, elem): future of (library path, ptxas report,
+    seconds)}, the name "ldu.cu" or "ldu_lane.cu:<kernel>"."""
     import concurrent.futures
     import time
 
-    def one(source, elem):
+    def one(source, elem, part):
         t = time.perf_counter()
-        return (*build(defines + _elem_define(elem), source), time.perf_counter() - t)
+        return (*build(defines + _elem_define(elem) + part, source), time.perf_counter() - t)
 
-    jobs = [(src, elem) for src in (SOURCE, LANE_SOURCE) for elem in (4, 8)]
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        done = {(os.path.basename(src), elem): pool.submit(one, src, elem) for src, elem in jobs}
-        return {key: f.result() for key, f in done.items()}
+    jobs = [("ldu.cu", SOURCE, elem, ()) for elem in (4, 8)] + [
+        (f"ldu_lane.cu:{kernel}", LANE_SOURCE, elem, _lane_define(kernel))
+        for kernel in LANE_PARTS for elem in (4, 8)]
+    pool = concurrent.futures.ThreadPoolExecutor(len(jobs))
+    done = {(name, elem): pool.submit(one, src, elem, part) for name, src, elem, part in jobs}
+    pool.shutdown(wait=False)
+    return done
+
+
+def build_all(defines: tuple = ()) -> dict:
+    """start_builds, waiting for every library: {(library name, elem):
+    (library path, ptxas report, seconds)}."""
+    return {key: f.result() for key, f in start_builds(defines).items()}
 
 
 _LIBS: dict = {}
@@ -196,24 +224,30 @@ def _dtype(elem: int) -> str:
     return {4: "f32", 8: "f64"}[elem]
 
 
-def lane_library(elem: int) -> ctypes.CDLL:
-    """The loaded library of csrc/ldu_lane.cu (the kernels for a lane over
-    a CTA's shared memory) for float32 (elem 4) or float64 (8), built and
-    loaded once per process."""
-    if ("lane", elem) not in _LIBS:
-        lib = ctypes.CDLL(build(_elem_define(elem), LANE_SOURCE)[0])
+def lane_library(elem: int, kernel: str) -> ctypes.CDLL:
+    """The loaded library of csrc/ldu_lane.cu for one of its kernels (for a
+    lane over a CTA's shared memory at its real rows: "factorize" and
+    "solve" packed, "matvec" of a lane in global memory) and float32 (elem
+    4) or float64 (8), built and loaded once per process."""
+    key = "lane", kernel, elem
+    if key not in _LIBS:
+        lib = ctypes.CDLL(build(_elem_define(elem) + _lane_define(kernel), LANE_SOURCE)[0])
         p, i, dt = ctypes.c_void_p, ctypes.c_int, _dtype(elem)
-        getattr(lib, f"ldu_lane_factorize_{dt}").argtypes = [p, p, i, p, p, p, p, p]
-        getattr(lib, f"ldu_lane_solve_{dt}").argtypes = [p, p, i, i, p, p, p, p, p, p]
-        getattr(lib, f"ldu_lane_matvec_{dt}").argtypes = [p, i, i, i, i, i, p, p, p, p]
-        for fn in ("factorize", "solve", "matvec"):
-            getattr(lib, f"ldu_lane_{fn}_{dt}").restype = i
+        entry, args = {
+            "factorize": ("ldu_packed_factorize", [p, p, i, p, p, p, p, p]),
+            "solve": ("ldu_packed_solve", [p, p, i, i, p, p, p, p, p, p]),
+            "matvec": ("ldu_lane_matvec", [p, i, i, i, i, i, p, p, p, p]),
+        }[kernel]
+        getattr(lib, f"{entry}_{dt}").argtypes = args
+        getattr(lib, f"{entry}_{dt}").restype = i
         lib.ldu_lane_kernel_smem.argtypes = [i, i]
         lib.ldu_lane_kernel_smem.restype = i
         if lib.ldu_lane_max_width() != MAXW:
             raise RuntimeError("csrc/ldu_lane.cu's widest block differs from ldu_cuda.MAXW")
-        _LIBS["lane", elem] = lib
-    return _LIBS["lane", elem]
+        if lib.ldu_lane_group_maxw() != GROUP_MAXW:
+            raise RuntimeError("csrc/ldu_lane.cu's GROUP_MAXW differs from ldu_cuda's")
+        _LIBS[key] = lib
+    return _LIBS[key]
 
 
 def library(elem: int, defines: tuple = ()) -> ctypes.CDLL:
@@ -261,10 +295,11 @@ def _grouped(keys, n_keys=None):
     return order, np.cumsum([0] + counts), [idx for k in order for idx in members[k]]
 
 
-def _csr(sched: Schedule, lane: bool = False) -> dict:
+def _csr(sched: Schedule, lane: bool = False, packed: bool = False) -> dict:
     """The schedule's lists as int32 arrays in CSR form (see struct Sched).
-    ``lane``: for the kernels of a lane over a CTA (csrc/ldu_lane.cu), which
-    find slot s at s W² and node n's LU and PS at n W² (``_real_widths``).
+    ``lane``: for the matvec of a lane over a CTA (csrc/ldu_lane.cu), which
+    finds slot s at s W² (``_real_widths``); ``packed``: for the packed
+    factorize and solve there, each slot at its real rows and columns.
 
     Besides the schedule's own lists, the kernels read lists derived from
     them.  Factorize: each node's position in its level (``node_pos``, the
@@ -341,7 +376,7 @@ def _csr(sched: Schedule, lane: bool = False) -> dict:
         "row_slot": row_slot,
         "slot_b": slot_b,
     }
-    real = _real_widths(sched, lane) if sched.width > 16 else {}
+    real = _real_widths(sched, lane, packed) if sched.width > 16 else {}
     arrays.update({k: real.get(k, []) for k in _ARRAYS[_ARRAYS.index("level_tw"):]})
     # the kernels keep diagonal blocks in slots 0..N-1 and stage the solve's
     # edge blocks as the slot range N..S-1
@@ -391,7 +426,24 @@ def _round4(n):
     return -(-n // 4) * 4
 
 
-def _real_widths(sched: Schedule, lane: bool = False) -> dict:
+GROUP_MAXW = 42  # the widest node a group LU of 3 warps takes (csrc/ldu_lane.cu GROUP_MAXW)
+
+
+def _wide_rounds(sched: Schedule, level) -> list:
+    """The block LUs of a wide level (a node wider than 32) in the packed
+    factorize, in rounds: a node up to GROUP_MAXW wide runs in a group of
+    three warps, two such at once (warps 0-2 and 3-5), a wider one
+    alone with the whole CTA (cta_lu); the level's nodes up to 32 wide run
+    beside the first round, in warps 6 and 7.  Returns [[node, ...], ...]:
+    the wide nodes of each round in the level's order."""
+    nw = sched.node_width
+    wide = [int(n) for n in level.nodes if nw[n] > 32]
+    small = [n for n in wide if nw[n] <= GROUP_MAXW]
+    return [small[i : i + 2] for i in range(0, len(small), 2)] + [
+        [n] for n in wide if nw[n] > GROUP_MAXW]
+
+
+def _real_widths(sched: Schedule, lane: bool = False, packed: bool = False) -> dict:
     """The arrays of the 17..32 and 33..72 classes, at each node's real
     width (struct Sched, csrc/ldu.cu "factorize and solve, 17..32" and
     "factorize, 33..72"): ``level_tw``, the tile each factorize level works
@@ -423,50 +475,89 @@ def _real_widths(sched: Schedule, lane: bool = False) -> dict:
 
     ``lane``: the places are the blocks' own in a lane's tensors, slot s at
     s W² (``slot_off``) and node n's LU and PS at n W² (``node_lu``), for
-    the kernels that keep a lane in global memory; every record follows."""
+    the matvec that keeps a lane in global memory; every record follows.
+
+    ``packed`` (the packed factorize and solve of csrc/ldu_lane.cu, for a
+    lane over a CTA whose blocks fit at their real rows and columns): slot
+    (a, b) holds its n_a x n_b real entries at leading dimension n_b, each
+    place rounded up to 4 elements; every record reads a block with the
+    leading dimension its fields give (E_{i,b}, a target: n_b; E_{a,i}:
+    n_i; a solve edge: the other node's width).  A wide level (over 32)
+    has ``level_tw`` = narrow tile << 8 | (widest | 1), the tile of its
+    nodes up to 32 wide, which real_lu factors beside the wide ones
+    (``_wide_rounds``); a wide node's LU tile has row stride n | 1 (odd)
+    and the others their level's (narrow) tile, so that node n's stride is
+    always node_tvec[n + 1] - node_tvec[n], and each pair's record carries
+    it: n_i's field is ld << 16 | n_i << 8 | n_b.  A wide level's X tiles
+    hold n_i rows.  The solve keeps each node's LU at its n x n real
+    entries (``node_lu``) and its vectors at ``node_vec``, and an edge
+    record names the other node's vector offset there."""
+    if lane and packed:
+        raise ValueError("a schedule is either the lane's or the packed one")
     nw = np.asarray(sched.node_width, dtype=np.int64)
     N, S, W = sched.n_nodes, sched.n_slots, sched.width
     slot_a = np.zeros(S, dtype=np.int64)
     slot_b = np.zeros(S, dtype=np.int64)
     for (a, b), s in sched.slot.items():
         slot_a[s], slot_b[s] = a, b
-    size = lambda s: W * W if lane else _round4(int(nw[slot_a[s]]) * W)
+    if lane:
+        size = lambda s: W * W
+    elif packed:
+        size = lambda s: _round4(int(nw[slot_a[s]]) * int(nw[slot_b[s]]))
+    else:
+        size = lambda s: _round4(int(nw[slot_a[s]]) * W)
     slot_off = np.cumsum([0] + [size(s) for s in range(S)])
     tiles = level_tiles(sched)
     tile = np.zeros(N, dtype=np.int64)
-    for level, tw in zip(sched.levels, tiles):
+    rows = np.zeros(N, dtype=np.int64)  # the rows of each node's LU tile
+    for lv, (level, tw) in enumerate(zip(sched.levels, tiles)):
         tile[level.nodes] = tw
-    node_tile = np.cumsum([0] + (tile * tile + 1).tolist())
+        rows[level.nodes] = tw
+        if packed and tw > 32:
+            narrow = [int(nw[n]) for n in level.nodes if nw[n] <= 32]
+            tiles[lv] = level_tile(max(narrow, default=8)) << 8 | tw
+            for n in level.nodes:
+                tile[n], rows[n] = (int(nw[n]) | 1, nw[n]) if nw[n] > 32 else (
+                    tiles[lv] >> 8, tiles[lv] >> 8)
+    node_tile = np.cumsum([0] + (rows * tile + 1).tolist())
     node_tvec = np.cumsum([0] + tile.tolist())
     pair_rec, xtask, xtask_ptr, stask, stask_ptr, x_len = [], [], [0], [], [0], 0
     tgt_rec, upd_rec, u0 = [], [], 0
     for level, tw in zip(sched.levels, tiles):
+        wide = (tw & 255) > 32
         pairs = list(dict.fromkeys(zip(level.upd_inv.tolist(), level.upd_ib.tolist())))
         off, xoff = 0, {}
         for p, (i, ib) in enumerate(pairs):
             xoff[i, ib] = off
-            pair_rec += [slot_off[ib], nw[i] << 8 | nw[slot_b[ib]], node_tile[i], node_tvec[i], off]
-            off += _round4(tw * int(nw[slot_b[ib]]))
+            ld = int(tile[i]) << 16 if packed else 0
+            pair_rec += [slot_off[ib], ld | nw[i] << 8 | nw[slot_b[ib]], node_tile[i],
+                         node_tvec[i], off]
+            off += _round4((nw[i] if packed and wide else tw) * int(nw[slot_b[ib]]))
             xtask += [p << 7 | c for c in range(nw[slot_b[ib]])]
         tgts, _, grouped = _grouped(level.upd_tgt.tolist())
-        rows = 1 if tw > 32 else ROW_CHUNK
+        chunk = 1 if wide else ROW_CHUNK
         for t, tgt in enumerate(tgts):
             tgt_rec += [slot_off[tgt], nw[slot_a[tgt]] << 8 | nw[slot_b[tgt]]]
-            stask += [t << 14 | r << 7 | c for r in range(0, int(nw[slot_a[tgt]]), rows)
+            stask += [t << 14 | r << 7 | c for r in range(0, int(nw[slot_a[tgt]]), chunk)
                       for c in range(nw[slot_b[tgt]])]
         for k in grouped:  # the updates in tgt_upd's order
             ai, i, ib = int(level.upd_ai[k]), int(level.upd_inv[k]), int(level.upd_ib[k])
             upd_rec += [slot_off[ai], nw[i], xoff[i, ib]]
         x_len = max(x_len, off)
-        if tw > 32:  # cta_lu's ping-pong rows and candidates lie in the X tiles' space
+        if wide and packed:  # each round's LU scratch, side by side, in the X tiles' space
+            for rnd in _wide_rounds(sched, level):
+                x_len = max(x_len, sum(wide_scratch(int(nw[n]), int(tile[n])) for n in rnd))
+        elif wide:  # cta_lu's ping-pong rows and candidates lie in the X tiles' space
             x_len = max(x_len, wide_scratch(int(level.real_w), tw))
         xtask_ptr.append(len(xtask))
         stask_ptr.append(len(stask))
     e0 = slot_off[N]
+    node_vec = np.cumsum([0] + nw.tolist())
+    vec = lambda n: node_vec[n] if packed else n * W  # a node's vector offset
     fwd = [(int(s), int(o)) for lv in sched.levels for s, o in zip(lv.fwd_ai, lv.fwd_i)]
     bwd = [(int(s), int(o)) for lv in sched.levels for s, o in zip(lv.bwd_ia, lv.bwd_a)]
     edge_rec = lambda edges, order: [v for e in order for v in (
-        slot_off[edges[e][0]] - e0, edges[e][1] * W, nw[edges[e][1]])]
+        slot_off[edges[e][0]] - e0, vec(edges[e][1]), nw[edges[e][1]])]
     fwd_a = np.concatenate([lv.fwd_a for lv in sched.levels]).tolist()
     bwd_i = np.concatenate([lv.bwd_i for lv in sched.levels]).tolist()
     return {
@@ -483,8 +574,9 @@ def _real_widths(sched: Schedule, lane: bool = False) -> dict:
         "upd_rec": upd_rec,
         "stask_ptr": stask_ptr,
         "stask": stask,
-        "node_lu": np.cumsum([0] + [W * W if lane else _round4(int(n) * W) for n in nw]),
-        "node_vec": np.cumsum([0] + nw.tolist()),
+        "node_lu": np.cumsum([0] + [W * W if lane else _round4(int(n) * (n if packed else W))
+                                    for n in nw]),
+        "node_vec": node_vec,
         "fin_rec": edge_rec(fwd, _grouped(fwd_a, N)[2]),
         "bin_rec": edge_rec(bwd, _grouped(bwd_i, N)[2]),
         "x_len": x_len,  # the most elements a level's X tiles (or a wide LU's scratch) take
@@ -550,17 +642,15 @@ def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int, kc: int =
     solve (17..72) stages the edge blocks' real rows, each node's real rows
     of LU and PS, and its node vectors at stride W; the matvec (17..72)
     stages every slot's real rows, ``kc`` node vectors at stride W and
-    the schedule's index arrays it reads.  ``lane``: the kernels of a lane
-    over a CTA, which keep the blocks (the solve: the edge blocks, LU and
-    PS) in global memory: those arrays take no shared memory."""
+    the schedule's index arrays it reads.  ``lane``: the matvec of a lane
+    over a CTA, which keeps the blocks in global memory."""
     real = _real_widths(sched)
-    big = 0 if lane else 1  # the arrays a lane over a CTA keeps in global memory
     off, N = real["slot_off"], sched.n_nodes
     a16 = lambda nbytes: -(-nbytes // 16) * 16  # each array 16-byte aligned
     if kernel == "factorize":
         tvec = int(real["node_tvec"][-1])
         return {
-            "fb": big * a16(int(off[-1]) * elem),  # every slot's real rows
+            "fb": a16(int(off[-1]) * elem),  # every slot's real rows
             "lu": a16(int(real["node_tile"][-1]) * elem),  # every node's LU tile
             "x": a16(real["x_len"] * elem),  # a level's X tiles
             "rd": a16(tvec * elem),  # 1 / diag(U) of every node
@@ -571,24 +661,63 @@ def _real_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int, kc: int =
     W = sched.width
     if kernel == "matvec":
         return {
-            "blocks": big * a16(int(off[-1]) * elem),  # every slot's real rows
+            "blocks": 0 if lane else a16(int(off[-1]) * elem),  # every slot's real rows
             "x": kc * N * W * elem,  # the chunk's vectors
             # row_ptr, row_slot, slot_b, slot_off, slot_rc, node_vec, node_w
             "idx": (4 * sched.n_slots + 3 * N + 3) * 4,
         }
     nlu, nvec = int(real["node_lu"][-1]), int(real["node_vec"][-1])
     return {
-        "e": big * a16(int(off[-1] - off[N]) * elem),  # the edge blocks' real rows (N..S-1)
-        "lu": big * a16(nlu * elem),  # each node's LU, its n real rows
+        "e": a16(int(off[-1] - off[N]) * elem),  # the edge blocks' real rows (N..S-1)
+        "lu": a16(nlu * elem),  # each node's LU, its n real rows
         "rd": a16(nvec * elem),  # 1 / diag(U)
         "psc": a16(nvec * elem),  # PS row scales
         "b": a16(N * W * elem),  # right-hand side, at stride W
         "t": a16(N * W * elem),  # D^{-1} b of the forward pass
         "x": a16(N * W * elem),  # solution
         "y": 0,
-        "ps": big * a16(nlu * elem),  # each node's PS, its n real rows, as staged
+        "ps": a16(nlu * elem),  # each node's PS, its n real rows, as staged
         "prow": a16(nvec * 4),  # PS row sources
         "si": a16(buf_len * 4),  # the schedule
+    }
+
+
+def _packed_sizes(sched: Schedule, kernel: str, elem: int, buf_len: int) -> dict:
+    """The shared-memory arrays (bytes) of the packed factorize and solve
+    (csrc/ldu_lane.cu), as _real_sizes gives them, at the packed places of
+    ``_real_widths(sched, packed=True)``; the solve stages PS as LU, n x n,
+    and keeps its vectors at their real offsets (``node_vec``), each array
+    32 entries longer (a row dot's loads past a node's last entry, which
+    multiply zeros)."""
+    real = _real_widths(sched, packed=True)
+    off, N = real["slot_off"], sched.n_nodes
+    a16 = lambda nbytes: -(-nbytes // 16) * 16
+    tvec, nvec = int(real["node_tvec"][-1]), int(real["node_vec"][-1])
+    if kernel == "factorize":
+        return {
+            "fb": a16(int(off[-1]) * elem),  # every slot's real entries, packed
+            "lu": a16(int(real["node_tile"][-1]) * elem),  # every node's LU tile
+            "x": a16(real["x_len"] * elem),  # a level's X tiles, or its LUs' scratch
+            "rd": a16(tvec * elem),
+            "psc": a16(tvec * elem),
+            "prow": a16(tvec * 4),
+            "si": a16(buf_len * 4),
+        }
+    if kernel != "solve":
+        raise ValueError(f"no packed kernel {kernel!r}")
+    vec = a16((nvec + 32) * elem)  # a node's vector at its real offset, 32 entries over
+    return {
+        "e": a16(int(off[-1] - off[N]) * elem),  # the edge blocks, packed
+        "lu": a16(int(real["node_lu"][-1]) * elem),  # each node's n x n LU
+        "rd": a16(nvec * elem),
+        "psc": a16(nvec * elem),
+        "b": vec,
+        "t": vec,
+        "x": vec,
+        "y": 0,
+        "ps": a16(int(real["node_lu"][-1]) * elem),  # each node's n x n PS
+        "prow": a16(nvec * 4),
+        "si": a16(buf_len * 4),
     }
 
 
@@ -604,9 +733,11 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     ``tile_width`` of the schedule's width class (W <= 16), or each node
     kept at its real rows (``_real_sizes``: the kernels of 17..72).  Where a
     lane of 17..72 at its real rows takes more than a CTA can have (one
-    vector: kc = 1), the layout is that of the kernels that keep the lane in
-    global memory (csrc/ldu_lane.cu: ``lane_variant``).  Raises ValueError
-    for a CTA over the 227 KB it can have."""
+    vector: kc = 1), the layout is that of csrc/ldu_lane.cu's kernels
+    (``variant``): the packed factorize and solve, whose factorize reads
+    the schedule from global memory where the rest leaves it no room
+    (offset ``si`` -1), or the matvec of a lane in global memory.  Raises
+    ValueError for a CTA over the 227 KB it can have."""
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
@@ -614,9 +745,13 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
     TW = 0 if cls == "w32" else tile_width(sched.width)
     NGROUPS = WIDTH_CLASSES[cls][1]
     N, S, WW, TILE = sched.n_nodes, sched.n_slots, sched.width**2, TW * TW
-    lane = lane_variant(sched, kernel, dtype, buf_len)
-    if cls != "w16" and kernel in ("factorize", "solve", "matvec"):
-        sizes = _real_sizes(sched, kernel, elem, buf_len, kc, lane)
+    var = variant(sched, kernel, dtype, buf_len) if kernel != "solve_shared" else cls
+    if var == "packed":
+        sizes = _packed_sizes(sched, kernel, elem, buf_len)
+        if kernel == "factorize" and sum(sizes.values()) > SMEM_LIMIT:
+            sizes["si"] = 0  # the schedule read from global memory
+    elif cls != "w16" and kernel in ("factorize", "solve", "matvec"):
+        sizes = _real_sizes(sched, kernel, elem, buf_len, kc, var == "lane")
     elif kernel == "factorize":
         K = _max_nodes(sched)
         sizes = {
@@ -667,39 +802,41 @@ def smem_layout(sched: Schedule, kernel: str, dtype, buf_len: int | None = None,
         raise ValueError(f"no shared-memory layout for kernel {kernel!r}")
     offsets = dict(zip(sizes, np.cumsum([0, *sizes.values()]).tolist()))
     offsets["bytes"] = sum(sizes.values())
+    if var == "packed" and not sizes["si"]:
+        offsets["si"] = -1
     if offsets["bytes"] > SMEM_LIMIT:
         raise ValueError(
             f"{kernel}: one lane needs {offsets['bytes']} bytes of shared memory ({dtype}), "
             f"over the {SMEM_LIMIT}-byte limit of a CTA"
-            + (" with its blocks in global memory" if lane else "")
+            + {"packed": " packed at its real rows and columns",
+               "lane": " with its blocks in global memory"}.get(var, "")
         )
     return offsets
 
 
-def lane_variant(sched: Schedule, kernel: str, dtype, buf_len: int | None = None) -> bool:
-    """Whether ``kernel`` (factorize, solve or matvec) takes the kernels of
-    a lane over a CTA (csrc/ldu_lane.cu) for this schedule and dtype: a
-    schedule of 17..72 whose lane at its real rows, with one vector, takes
-    more shared memory than a CTA can have."""
-    if width_class(sched.width) == "w16" or kernel not in ("factorize", "solve", "matvec"):
-        return False
+def variant(sched: Schedule, kernel: str, dtype, buf_len: int | None = None) -> str:
+    """The kernels a launch of ``kernel`` (factorize, solve or matvec, one
+    right-hand side a factorization) takes for this schedule and dtype, by
+    bytes: its width class; or, for a lane of 17..72 whose real-width
+    layout takes more shared memory than a CTA can have (one vector),
+    csrc/ldu_lane.cu's: "packed" for the factorize and solve (the lane at
+    its real rows and columns; where even that is over, smem_layout
+    raises), "lane" for the matvec."""
+    cls = width_class(sched.width)
+    if cls == "w16" or kernel not in ("factorize", "solve", "matvec"):
+        return cls
     if buf_len is None:
         buf_len = sum(a.size for a in _csr(sched).values())
     elem = torch.empty((), dtype=dtype).element_size()
-    return sum(_real_sizes(sched, kernel, elem, buf_len).values()) > SMEM_LIMIT
+    if sum(_real_sizes(sched, kernel, elem, buf_len).values()) <= SMEM_LIMIT:
+        return cls
+    return "lane" if kernel == "matvec" else "packed"
 
 
-def variant(sched: Schedule, kernel: str, dtype, buf_len: int | None = None) -> str:
-    """The kernels a launch of ``kernel`` (factorize, solve or matvec, one
-    right-hand side a factorization) takes for this schedule and dtype: its
-    width class, or "lane" where the lane does not fit a CTA."""
-    return "lane" if lane_variant(sched, kernel, dtype, buf_len) else width_class(sched.width)
-
-
-def _device_csr(sched: Schedule, device, lane: bool = False):
-    """``_csr(sched, lane)`` as one int32 buffer on ``device`` and the C
-    struct Sched that points into it: (buffer, struct)."""
-    arrays = _csr(sched, lane)
+def _device_csr(sched: Schedule, device, lane: bool = False, packed: bool = False):
+    """``_csr(sched, lane, packed)`` as one int32 buffer on ``device`` and
+    the C struct Sched that points into it: (buffer, struct)."""
+    arrays = _csr(sched, lane, packed)
     buf = torch.as_tensor(np.concatenate([arrays[n] for n in _ARRAYS]),
                           device=torch.device(device))
     offs = np.cumsum([0] + [arrays[n].size for n in _ARRAYS])
@@ -717,15 +854,19 @@ class DeviceSchedule:
         self.plan = ldu.LduPlan(sched, device)
         self.buf, self.struct = _device_csr(sched, device)
         self._layouts = {}
-        self._lane = None
+        self._structs = {}
 
-    def lane_struct(self):
-        """The C struct of the schedule for the kernels of a lane over a CTA
-        (``_csr(sched, lane=True)``: slot s at s W², node n's LU and PS at
-        n W²), on this device, made at first use (its buffer kept with it)."""
-        if self._lane is None:
-            self._lane = _device_csr(self.sched, self.buf.device, lane=True)
-        return self._lane[1]
+    def struct_of(self, var: str):
+        """The C struct of the schedule for the kernels of variant ``var``:
+        ``_csr(sched, lane=True)`` for "lane" (slot s at s W²),
+        ``_csr(sched, packed=True)`` for "packed", else the schedule's own;
+        made at first use on this device (its buffer kept with it)."""
+        if var not in LANE_VARIANTS:
+            return self.struct
+        if var not in self._structs:
+            self._structs[var] = _device_csr(self.sched, self.buf.device, lane=var == "lane",
+                                             packed=var == "packed")
+        return self._structs[var][1]
 
     def layout(self, kernel: str, dtype, kc: int = 1):
         """``smem_layout`` of this schedule as its C struct (for "matvec":
@@ -738,11 +879,11 @@ class DeviceSchedule:
                                   if struct else offsets)
         return self._layouts[key]
 
-    def lane(self, kernel: str, dtype) -> bool:
-        """``lane_variant`` of this schedule, made once per kernel and dtype."""
-        key = "lane", kernel, dtype
+    def variant(self, kernel: str, dtype) -> str:
+        """``variant`` of this schedule, made once per kernel and dtype."""
+        key = "variant", kernel, dtype
         if key not in self._layouts:
-            self._layouts[key] = lane_variant(self.sched, kernel, dtype, self.buf.numel())
+            self._layouts[key] = variant(self.sched, kernel, dtype, self.buf.numel())
         return self._layouts[key]
 
     def chunk(self, kernel: str, dtype, k: int) -> int:
@@ -783,25 +924,24 @@ def _cuda_args(ds: DeviceSchedule, rhs_per_fact=1, **tensors):
     return suffix, B, first.device
 
 
-def _launch(wrapper, suffix, ds, device, k, lane, *args):
-    """Launch ldu_<name>_<suffix> (the kernel of the schedule's width class)
-    or, with ``lane``, ldu_lane_<name>_<suffix> (csrc/ldu_lane.cu, on the
-    schedule's lane struct) on the device's current stream, and count it on
-    its wrapper (with k > 1 right-hand sides a factorization also in
-    ``shared_launches``)."""
+def _launch(wrapper, suffix, ds, device, k, var, *args):
+    """Launch the kernel of variant ``var`` (``variant``): ldu_<name>_<suffix>
+    (a width class's), or ldu_packed_<name>_<suffix> / ldu_lane_<name>_<suffix>
+    (csrc/ldu_lane.cu, on the variant's schedule struct), on the device's
+    current stream, and count it on its wrapper (with k > 1 right-hand
+    sides a factorization also in ``shared_launches``)."""
     name, elem = wrapper.__name__, 4 if suffix == "f32" else 8
-    fn = getattr(lane_library(elem), f"ldu_lane_{name}_{suffix}") if lane else getattr(
-        library(elem=elem), f"ldu_{name}_{suffix}")
+    entry = f"ldu_{var}_{name}_{suffix}" if var in LANE_VARIANTS else f"ldu_{name}_{suffix}"
+    lib = lane_library(elem, name) if var in LANE_VARIANTS else library(elem=elem)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(ctypes.byref(ds.lane_struct() if lane else ds.struct), *args, stream)
+        rc = getattr(lib, entry)(ctypes.byref(ds.struct_of(var)), *args, stream)
     if rc != 0:
-        raise RuntimeError(f"ldu_{'lane_' if lane else ''}{name}_{suffix}: CUDA error {rc}")
-    cls = "lane" if lane else width_class(ds.sched.width)
+        raise RuntimeError(f"{entry}: CUDA error {rc}")
     wrapper.launches += 1
-    wrapper.class_launches[cls] += 1
+    wrapper.class_launches[var] += 1
     if k > 1:
-        wrapper.shared_launches[cls] += 1
+        wrapper.shared_launches[var] += 1
 
 
 def _plain_or_cuda(t: torch.Tensor) -> bool:
@@ -834,8 +974,14 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
     blocks); 33 <= W <= 72, a node wider than 32: its block LU by the whole
     CTA (its trailing submatrix in the registers of 256 threads, each
     warp's pivot candidate taken from them, one CTA barrier per pivot), X
-    a warp per column, the targets a thread per entry.  Rows swap arithmetically, as in
-    ldu.blu_factor; every block LU is ldu.blu_factor's bitwise."""
+    a warp per column, the targets a thread per entry.  A lane over a CTA at
+    its real rows ("packed", csrc/ldu_lane.cu fact_packed: atlas): the
+    lane's blocks staged at their real rows and columns, a wide level's
+    nodes up to GROUP_MAXW wide factored two at once by groups of
+    three warps (cta_lu's arithmetic), its narrow nodes beside them;
+    the outputs' pad written at once by a CTA of its own a lane (2 B CTAs).
+    Rows swap arithmetically, as in ldu.blu_factor; every block LU is
+    ldu.blu_factor's bitwise."""
     if not _plain_or_cuda(blocks):
         return ldu.factorize(ds.plan, blocks)
     suffix, B, dev = _cuda_args(ds, blocks=blocks)
@@ -845,7 +991,7 @@ def factorize(ds: DeviceSchedule, blocks: torch.Tensor):
     lu = blocks.new_empty(B, N, W, W)
     ps = blocks.new_empty(B, N, W, W)
     if B:
-        _launch(factorize, suffix, ds, dev, 1, ds.lane("factorize", blocks.dtype),
+        _launch(factorize, suffix, ds, dev, 1, ds.variant("factorize", blocks.dtype),
                 ctypes.byref(layout), B,
                 blocks.data_ptr(), fb.data_ptr(), lu.data_ptr(), ps.data_ptr())
     return fb, lu, ps
@@ -874,7 +1020,11 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) ->
     classes take the pad of the factors and of the blocks that made them
     as the assembler makes it (zero, identity on the diagonal blocks: LU's
     and PS's pad identity, the edge blocks' zero); a solution's pad is then
-    the right-hand side's, which the kernel copies.  With k > 1 and
+    the right-hand side's, which the kernel copies.  A lane over a CTA at
+    its real rows ("packed", csrc/ldu_lane.cu solve_packed: atlas): the
+    edge blocks, LUs and PS staged at their real rows and columns, the
+    vectors at their real offsets, both passes in shared memory, a wide
+    level's nodes at once.  With k > 1 and
     W <= 16: one CTA per factorization and chunk of up to 32 of its
     columns, the factors staged once, a warp a node and a lane a column."""
     fb, lu, ps = fact
@@ -889,9 +1039,9 @@ def solve(ds: DeviceSchedule, fact, rhs: torch.Tensor, rhs_per_fact: int = 1) ->
         layout = ds.layout("solve", rhs.dtype)
     out = torch.empty_like(rhs)
     if B:
-        lane = kc == 0 and ds.lane("solve", rhs.dtype)
-        _launch(solve, suffix, ds, dev, k, lane, ctypes.byref(layout), B, k,
-                *(() if lane else (kc,)), fb.data_ptr(), lu.data_ptr(), ps.data_ptr(),
+        var = ds.variant("solve", rhs.dtype) if kc == 0 else "w16"
+        _launch(solve, suffix, ds, dev, k, var, ctypes.byref(layout), B, k,
+                *(() if var == "packed" else (kc,)), fb.data_ptr(), lu.data_ptr(), ps.data_ptr(),
                 rhs.data_ptr(), out.data_ptr())
     return out
 
@@ -920,7 +1070,7 @@ def matvec(ds: DeviceSchedule, blocks: torch.Tensor, x: torch.Tensor,
     layout = ds.layout("matvec", x.dtype, kc)
     out = torch.empty_like(x)
     if B:
-        _launch(matvec, suffix, ds, dev, k, ds.lane("matvec", x.dtype), B, k, kc, layout["x"],
+        _launch(matvec, suffix, ds, dev, k, ds.variant("matvec", x.dtype), B, k, kc, layout["x"],
                 layout["bytes"], blocks.data_ptr(), x.data_ptr(), out.data_ptr())
     return out
 

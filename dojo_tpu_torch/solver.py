@@ -441,5 +441,6 @@ def make_solver(topo: Topology, device=None, linsolve: str = "auto"):
         res = SolveResult(w, success, it, rvio, bvio, mu, torch.zeros_like(success))
         return res, {k: torch.stack(v) for k, v in rec.items()}
 
+    solve.make_iteration = make_iteration
     solve.traced = solve_traced
     return init_w, solve, violations

@@ -17,7 +17,10 @@ events behind a spin kernel) of
   - factorize and solve on the other 17..32 models' KKTs (snake, hopper,
     twister) at B=64;
   - solve and matvec with k=54 right-hand sides a factorization on the
-    quadruped KKT at 1,280 lanes (the linearize's shape in bench.py's MPC).
+    quadruped KKT at 1,280 lanes (the linearize's shape in bench.py's MPC);
+  - factorize, solve and matvec on atlas's KKT (chip_smoke.atlas_case: a
+    lane over a CTA at its real rows, csrc/ldu_lane.cu's kernels) in
+    float32 at B=64 and for one lane, and in float64 at B=8.
 The KKTs are chip_smoke.model_kkt's (each model's initial state, a seed);
 time_ms_redone counts the timings made again because the host fell behind
 the spin kernel (chip_smoke.time_ms).
@@ -94,6 +97,19 @@ def main():
             ms["solve_k54_B1280"] = C.time_ms(lambda: L.solve(ds, fact, b, k), 5)
             ms["matvec_k54_B1280"] = C.time_ms(lambda: L.matvec(ds, blocks, xk, k), 5)
         torch.cuda.synchronize()
+    for dtype, lanes in ((f32, (64, 1)), (torch.float64, (8,))):
+        mech, state = C.atlas_case(dtype, dev)
+        for b in lanes:
+            _, ds, bl, r = C.model_kkt(mech, state, b, dev)
+            f = L.factorize(ds, bl)
+            x = L.solve(ds, f, r)
+            out["ms"][f"atlas_B{b}" + ("_f64" if dtype != f32 else "")] = {
+                "factorize": C.time_ms(lambda: L.factorize(ds, bl), args.reps),
+                "solve": C.time_ms(lambda: L.solve(ds, f, r), args.reps),
+                "matvec": C.time_ms(lambda: L.matvec(ds, bl, x), args.reps),
+                "variants": {n: L.variant(ds.sched, n, dtype) for n in ("factorize", "solve",
+                                                                       "matvec")},
+            }
     for name in ("snake", "hopper", "twister"):
         mech = models.get_mechanism(name, device=dev).cast(f32)
         _, ds, blocks, rhs = C.model_kkt(mech, models.initialize(mech, name), 64, dev)

@@ -179,8 +179,9 @@ def _check_class(name, dtype, lanes, k=1):
     in the 17..32 and 33..72 classes every block LU and PS bitwise equal to
     ldu.blu_factor's of the block the kernel factored (float32 and
     float64); a lane that does not fit a CTA in the real-width classes takes
-    the lane kernels (csrc/ldu_lane.cu: atlas), in W <= 16 raises
-    ValueError (never the plain version)."""
+    the kernels of csrc/ldu_lane.cu (atlas: the packed factorize and solve,
+    the lane matvec), in W <= 16 raises ValueError (never the plain
+    version)."""
     f32 = dtype == torch.float32
     tol = 2e-5 if f32 else 1e-10
     sched, blocks, r = model_kkt(name, dtype, "cuda", lanes)
@@ -191,8 +192,10 @@ def _check_class(name, dtype, lanes, k=1):
         with pytest.raises(ValueError, match="bytes of shared memory"):
             L.factorize(ds, blocks)
         return
-    cls = L.variant(sched, "factorize", dtype)
-    assert all(L.variant(sched, n, dtype) == cls for n in ("solve", "matvec"))
+    var = {fn.__name__: L.variant(sched, fn.__name__, dtype)
+           for fn in (L.factorize, L.solve, L.matvec)}
+    cls = var["factorize"]
+    assert var["solve"] == cls and var["matvec"] == ("lane" if cls == "packed" else cls)
     L.reset_launches()
     fact = L.factorize(ds, blocks)
     ref = ldu.factorize(ds.plan, blocks)
@@ -223,7 +226,7 @@ def _check_class(name, dtype, lanes, k=1):
     assert bool(((y - ldu.matvec(ds.plan, blocks, x, k)).abs() <= 1e-5 * mag + 1e-30).all())
     assert (L.factorize.launches, L.solve.launches, L.matvec.launches) == (1, 3, 2)
     for fn in (L.factorize, L.solve, L.matvec):
-        assert fn.class_launches[cls] == fn.launches
+        assert fn.class_launches[var[fn.__name__]] == fn.launches
 
 
 @pytest.mark.cuda
@@ -232,8 +235,9 @@ def _check_class(name, dtype, lanes, k=1):
                                   "twister", "block", "uuv", "block2d", "quadrotor", "atlas"])
 def test_width_classes_match_plain_on_cuda(name, lanes):
     """Each width class (pendulum W=6; snake, hopper, walker, humanoid,
-    twister, uuv W=22; block, quadrotor W=70, block2d W=38) and the lane
-    kernels (atlas, W=38, a lane over a CTA) against the plain versions,
+    twister, uuv W=22; block, quadrotor W=70, block2d W=38) and the
+    kernels of csrc/ldu_lane.cu (atlas, W=38, a lane over a CTA at its real
+    rows: packed factorize and solve, lane matvec) against the plain versions,
     float32 and float64, odd batches included; block's float64 lane fits a
     CTA at the factorize's real widths and runs through the kernels."""
     if not torch.cuda.is_available():
@@ -245,8 +249,8 @@ def test_width_classes_match_plain_on_cuda(name, lanes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [3, 54])
 def test_lane_kernels_several_rhs_on_cuda(k):
-    """Atlas's lane kernels with k right-hand sides a factorization (a CTA
-    a column) and the matvec at k vectors, float32."""
+    """Atlas's packed solve with k right-hand sides a factorization (a CTA
+    a column) and the lane matvec at k vectors, float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     _check_class("atlas", torch.float32, 2, k)

@@ -39,11 +39,19 @@ from dojo_tpu_torch.simulate import make_step as t_make_step
 
 OPTS = dict(rtol=1e-6, btol=1e-4, max_iter=30)
 REF_K = 5  # steps held step by step (ROADMAP Queue 3 items 2 and 3)
+# Where dojo_tpu's float32 arithmetic parts from the port's first
+# (scripts/f32_divergence.py, ROADMAP Queue 3 items 2 and 3): XLA's fused
+# multiply-adds in the jitted step, which eager PyTorch rounds apart
+XLA_FMA = ("XLA fuses x + v h of dojo_tpu/lie.py:151 (next_position, in make_context and "
+           "the body rows) and products of lie.py:33-38 (qmul, through next_orientation) "
+           "into FMAs, which the port rounds apart; at dojo_tpu's first iterate the port's "
+           "residual, KKT and LDU agree with its to 8 ulps")
 # The lanes the port rescues and dojo_tpu does not (ROADMAP Queue 3, with
 # each step's values): a fault, not fixed yet; xfail, strict, until it is
 RESCUED_ALONE = {
     "hopper": "step 2 rescued (29 iterations) where dojo_tpu converges without the "
-              "rescue (16)",
+              "rescue (16); " + XLA_FMA + ", and their branches part at iteration 11 "
+              "(the no-progress count)",
     "quadruped": "step 3 rescued (36) where dojo_tpu fails, its rescue too (44)",
 }
 # Where the port's float32 steps part from dojo_tpu's at all (ROADMAP Queue
@@ -53,13 +61,14 @@ RESCUED_ALONE = {
 PARTS = {
     "pendulum": "step 2 converges in 4 iterations where dojo_tpu needs the rescue (15)",
     "cartpole": "step 1 fails (38 iterations) where dojo_tpu converges in 2; step 3 "
-                "converges in 1 where dojo_tpu fails (37)",
+                "converges in 1 where dojo_tpu fails (37); " + XLA_FMA + ", and take "
+                "its branches: its own iterate after the first differs by 243 ulps",
     "sphere": "step 2 converges in 12 where dojo_tpu needs the rescue (25)",
     "npendulum": "every step fails in both; iterations 39/39/37/41/36 against 37/37/36/40/35",
     "block": "step 3 fails (39) where dojo_tpu's rescue converges (19); step 4 rescued in 19 "
              "against 22",
     "hopper": "step 2 rescued (29) where dojo_tpu converges without it (16): a lane the port "
-              "rescues and dojo_tpu does not",
+              "rescues and dojo_tpu does not; " + XLA_FMA,
     "snake": "every step fails in both; step 4 takes 38 iterations against 39",
     "halfcheetah": "every step fails in both; iterations 57/45/46/42/45 against 45/45/47/46/54",
     "walker": "every step fails in both; iterations 47/50/51/48/44 against 48/60/49/49/45",

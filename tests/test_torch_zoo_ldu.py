@@ -148,11 +148,12 @@ def _register_lu(D, n, TW, group, n_loop):
     return LU[:n, :n], PS[:n, :n]
 
 
-def _wide_lu(D, n):
+def _wide_lu(D, n, warps=8):
     """fact_wide's block LU of a node wider than 32 (csrc/ldu.cu cta_lu) in
     numpy, on the node's real n x n block, entry by entry as the kernel
-    computes it: each of the 8 warps' candidate for pivot k, its rows w,
-    w + 8, ... >= k scanned from the last, a tie keeping the lower row; the
+    computes it (with warps=3, csrc/ldu_lane.cu group_lu's): each of the
+    warps' candidate for pivot k, its rows w, w + warps, ... >= k scanned
+    from the last, a tie keeping the lower row; the
     pivot the largest candidate, on a tie the lowest row; rows k and p
     formed arithmetically (Tk + (Tp - Tk) and Tp + (Tk - Tp)) in every
     column, their multipliers too, the pivot floored, each multiplier a
@@ -166,9 +167,9 @@ def _wide_lu(D, n):
     prow, psc = np.arange(n), sc.copy()
     for k in range(n):
         cands = []
-        for w in range(8):
+        for w in range(warps):
             v, key = -1.0, w
-            for i in reversed(range(w, n, 8)):
+            for i in reversed(range(w, n, warps)):
                 if i >= k and abs(m[i, k]) >= v:
                     v, key = abs(m[i, k]), i
             cands.append((v, -key))
